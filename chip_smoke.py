@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (co_zkvms_tpu_torch) once on one NVIDIA H100.
+
+Phases, one line each; a failed phase raises, so the script exits non-zero
+before its last line:
+
+  1. device   the card's name, the device count, nvidia-smi's name and power
+              limit.
+  2. build    every ops/csrc/*.cu through nvcc, all started together; the
+              build time and each kernel's registers and spills.
+  3. kernels  each kernel against its plain PyTorch version on the same
+              inputs at the main path's shapes, bit-exact (the results are
+              field elements and points: there is no tolerance); the time
+              per launch from CUDA events beside its bound and the plain
+              version's time.
+  4. slice    the main path through the entry points a user calls:
+              pst13.setup(nv, 7) and spartan.prove of
+              squaring_chain(2^nv - 4) with x = 3 (nv = 20 by default, as the
+              JAX package's bench.py sub_spartan(20)); the host verifier
+              accepts the proof and rejects a tampered one; every kernel's
+              launch count in that run is > 0. Then two checks against the
+              repository's own references: setup(10, 7) equals the tracked
+              .srs_cache/srs_10_7.pkl, and the cubic circuit's proof on the
+              card equals the one the plain versions make on the CPU.
+  5. profile  the same prove again, with the index rebuilt, under
+              torch.profiler: each of the prover's named phases
+              (models/spartan.py, utils/phases.py) with its host time and
+              the device's busy time inside it, and the device's idle share
+              of the prove. The proof must equal the slice's.
+
+Then it prints one JSON line of kernel records, nvidia-smi's name and power
+limit, and, last, {"ok": true, "device": {...}}.
+
+Usage: python3 chip_smoke.py [--nv 20] [--seed 7]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet; CUDA throughput table for compute
+# capability 9.0: 64 32-bit integer multiply-adds per clock per SM)
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+# 32-bit multiply-add slots per field product: a 32x32->64 product is two
+# (low and high halves). CIOS mul: 64 + 64 wide + 8 low; SOS square:
+# 28 + 8 + 64 wide + 8 low.
+MUL_OPS = 2 * 128 + 8
+SQR_OPS = 2 * 100 + 8
+ELEM = 32                                  # bytes per field element
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / IMAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nv", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=7)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from co_zkvms_tpu_torch.utils import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log(f"[device] {name} count={torch.cuda.device_count()} "
+        f"nvidia-smi: {smi}; torch {torch.__version__} "
+        f"CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    report = build.build_all()
+    t_build = time.perf_counter() - t0
+    regs = []
+    for log_text in report.values():
+        regs.extend(build.ptxas_summary(log_text))
+    log(f"[build] {len(report)} sources in {t_build:.1f} s (parallel nvcc)")
+    for line in regs:
+        log(f"[build]   {line}")
+
+    records = kernel_phase(torch, dev, args.nv)
+    profile_phase(torch, dev, *slice_phase(torch, dev, args, records))
+
+    print(json.dumps({"kernels": records}), flush=True)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 3: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def same(torch, a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(same(torch, x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
+def record(kfn, source, ms, plain_ms, nbytes, ops, note=None):
+    b_ms, b_by = bound(nbytes, ops)
+    rec = {"name": kfn.name, "route": "cuda", "source": source,
+           "replaces": kfn.replaces, "launches": 0, "max_abs_err": 0,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    if note:
+        rec["plain_scope"] = note
+    return rec
+
+
+def random_fe(torch, gen, n, dev):
+    """n canonical elements: a top limb below both moduli's keeps x < m."""
+    w = torch.randint(-(1 << 31), (1 << 31) - 1, (n, 8), generator=gen,
+                      dtype=torch.int64, device="cpu")
+    w[:, 7] = torch.randint(0, 0x30644E72, (n,), generator=gen,
+                            dtype=torch.int64)
+    return w.to(torch.int32).to(dev)
+
+
+def kernel_phase(torch, dev, nv: int) -> list:
+    from co_zkvms_tpu_torch.ops import curve as C
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import msm as M
+    from co_zkvms_tpu_torch.ops import ref_bn254 as bn
+
+    gen = torch.Generator().manual_seed(1)
+    records = []
+    fsrc = "co_zkvms_tpu_torch/ops/csrc/field_kernels.cu"
+    n = 1 << nv
+    for kfn, fn, plain, ops in (
+            (F.FP_MUL, F.mul, F.mul_plain, MUL_OPS),
+            (F.FP_SQUARE, F.square, F.square_plain, SQR_OPS),
+            (F.FP_ADD, F.add, F.add_plain, 0),
+            (F.FP_SUB, F.sub, F.sub_plain, 0)):
+        times = {}
+        for spec in (F.FR, F.FQ):
+            a = random_fe(torch, gen, n, dev)
+            b = random_fe(torch, gen, n, dev)
+            a[0] = 0
+            b[1] = F.constant(spec, spec.modulus - 1, dev)
+            args = (a,) if kfn is F.FP_SQUARE else (a, b)
+            got = fn(spec, *args)
+            want = plain(spec, *args)
+            torch.cuda.synchronize()
+            if not same(torch, got, want):
+                raise AssertionError(f"{kfn.name} {spec.name}: kernel != plain")
+            times[spec.name] = (cuda_ms(torch, lambda: fn(spec, *args), 20),
+                                cuda_ms(torch, lambda: plain(spec, *args), 1))
+        ms, pms = times["bn254_fr"]
+        nin = 1 if kfn is F.FP_SQUARE else 2
+        records.append(record(kfn, fsrc, ms, pms, (nin + 1) * ELEM * n,
+                              ops * n))
+        log(f"[kernels] {kfn.name} 2^{nv} bit-exact; Fr {ms:.4f} ms "
+            f"(plain {pms:.2f} ms), Fq {times['bn254_fq'][0]:.4f} ms "
+            f"(plain {times['bn254_fq'][1]:.2f} ms), bound "
+            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
+
+    # G1 at 2^(nv-4) points, with p = q, p = -q and infinity rows planted
+    npt = 1 << (nv - 4)
+    g = C.points_from_ints([bn.g1_coords(bn.G1_GEN)], device=dev)
+    g1 = C.APoint(g.x[0], g.y[0])
+
+    def rand_points(count):
+        s = F.to_mont(F.FR, random_fe(torch, gen, count, dev))
+        return C.to_affine(M.fixed_base_msm(g1, s))
+
+    pa, qa = rand_points(npt), rand_points(npt)
+    p = C.double(C.from_affine(pa))              # z != 1
+    q = C.double(C.from_affine(qa))
+    inf = C.infinity((1,), dev)
+    # row 0: p == q; row 1: p == -q; row 2: p = inf; row 3: q = inf;
+    # row 4: both inf
+    q = C.JPoint(*(c.clone() for c in q))
+    p = C.JPoint(*(c.clone() for c in p))
+    for dst, src in zip(q, p):
+        dst[0] = src[0]
+        dst[1] = src[1]
+    q.y[1] = F.neg(F.FQ, p.y[1:2])[0]
+    for dst, src in zip(p, inf):
+        dst[2] = src[0]
+        dst[4] = src[0]
+    for dst, src in zip(q, inf):
+        dst[3] = src[0]
+        dst[4] = src[0]
+    q_aff = C.to_affine(q)                       # same rows, affine
+    gsrc = "co_zkvms_tpu_torch/ops/csrc/g1.cu"
+    n_gen = npt - 5
+    pre = 3 * MUL_OPS + SQR_OPS                  # up to h and r (mixed)
+    dbl = 2 * MUL_OPS + 5 * SQR_OPS
+    madd = 7 * MUL_OPS + 4 * SQR_OPS
+    pre_j = 6 * MUL_OPS + 2 * SQR_OPS
+    jadd = 11 * MUL_OPS + 5 * SQR_OPS
+    cases = (
+        (C.G1_ADD_MIXED, C.add_mixed, C.add_mixed_plain, (p, q_aff),
+         n_gen * madd + 2 * pre + dbl, 8 * ELEM),
+        (C.G1_ADD, C.add, C.add_plain, (p, q),
+         n_gen * jadd + 2 * pre_j + dbl, 9 * ELEM),
+        (C.G1_DOUBLE, C.double, C.double_plain, (p,), npt * dbl, 6 * ELEM),
+        (C.G1_ADD_INCOMPLETE, C.add_incomplete, C.add_incomplete_plain,
+         (p, q), (n_gen + 2) * jadd, 9 * ELEM),
+    )
+    for kfn, fn, plain, args, ops, per_pt in cases:
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        if not same(torch, tuple(got), tuple(want)):
+            raise AssertionError(f"{kfn.name}: kernel != plain")
+        ms = cuda_ms(torch, lambda: fn(*args), 20)
+        pms = cuda_ms(torch, lambda: plain(*args), 1)
+        records.append(record(kfn, gsrc, ms, pms, per_pt * npt, ops))
+        log(f"[kernels] {kfn.name} 2^{nv - 4} points (p=q, p=-q, inf rows) "
+            f"bit-exact; {ms:.4f} ms (plain {pms:.2f} ms), bound "
+            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
+
+    # B8 on a 2^nv-point window set at the path's window bits
+    c = M.auto_c(n)
+    pts = rand_points(n)
+    scalars = F.to_mont(F.FR, random_fe(torch, gen, n, dev))
+    order, starts, _, _ = M.sorted_windows(scalars, c)   # as msm does
+    nw, nb = starts.shape[0], starts.shape[1] - 1
+    got = M.bucket_accumulate(pts, order, starts)
+    ws = [0, nw - 1]
+    want = M.bucket_accumulate_plain(pts, order[ws].contiguous(),
+                                     starts[ws].contiguous())
+    torch.cuda.synchronize()
+    if not same(torch, tuple(c_[ws] for c_ in got), tuple(want)):
+        raise AssertionError("msm_bucket_accumulate: kernel != plain")
+    ms = cuda_ms(torch, lambda: M.bucket_accumulate(pts, order, starts), 5)
+    pms = cuda_ms(torch, lambda: M.bucket_accumulate_plain(
+        pts, order[ws].contiguous(), starts[ws].contiguous()), 1)
+    counts = (starts[:, 1:] - starts[:, :-1])[:, 1:]
+    adds = int(counts.sum()) - int((counts > 0).sum())
+    nbytes = n * 2 * ELEM + nw * n * 4 + nw * (nb + 1) * 4 + nw * nb * 3 * ELEM
+    records.append(record(M.MSM_BUCKET, "co_zkvms_tpu_torch/ops/csrc/msm_bucket.cu",
+                          ms, pms, nbytes, adds * madd,
+                          note=f"plain_ms covers windows {ws} of {nw}"))
+    log(f"[kernels] msm_bucket_accumulate 2^{nv} points c={c} ({nw} windows "
+        f"x {nb} buckets) bit-exact on windows {ws}; {ms:.3f} ms (plain "
+        f"{pms:.1f} ms on {len(ws)} windows), bound "
+        f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
+
+    # the top-window regroup at an opening MSM's shape: c = auto_c(2^(nv-4))
+    # leaves the top window 2 bits (nv = 20), so without the regroup a few
+    # buckets hold a quarter of the points each and one thread walks each
+    n_open = 1 << (nv - 4)
+    c_open = M.auto_c(n_open)
+    sc_open = scalars[:n_open]
+    p_open = C.APoint(pts.x[:n_open], pts.y[:n_open])
+    raw = M.sort_windows(M.window_digits(sc_open, c_open), c_open)
+    regrouped = M.sorted_windows(sc_open, c_open)[:2]
+    line = []
+    for label, (order, starts) in (("as is", raw), ("regrouped", regrouped)):
+        ms = cuda_ms(torch, lambda: M.bucket_accumulate(
+            p_open, order, starts), 3)
+        occ = int((starts[:, 2:] - starts[:, 1:-1]).max())
+        line.append(f"{label} {ms:.3f} ms (fullest bucket {occ} points)")
+    log(f"[kernels] msm_bucket_accumulate 2^{nv - 4} points c={c_open}, top "
+        f"window {line[0]}, {line[1]}")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+
+def cubic_circuit(builder):
+    b = builder(num_public=2)                    # wires [1, y, x, w1, w2]
+    x = b.new_wire()
+    w1 = b.new_wire()
+    w2 = b.new_wire()
+    b.add_constraint([(1, x)], [(1, x)], [(1, w1)])
+    b.add_constraint([(1, w1)], [(1, x)], [(1, w2)])
+    b.add_constraint([(1, w2), (1, x), (5, 0)], [(1, 0)], [(1, 1)])
+    return b
+
+
+def slice_phase(torch, dev, args, records) -> tuple:
+    from co_zkvms_tpu_torch.models import spartan
+    from co_zkvms_tpu_torch.models.r1cs import R1CSBuilder
+    from co_zkvms_tpu_torch.models.synthetic import squaring_chain
+    from co_zkvms_tpu_torch.ops import pst13
+    from co_zkvms_tpu_torch.utils import build, convert
+
+    nv = args.nv
+    t0 = time.perf_counter()
+    b = squaring_chain((1 << nv) - 4)
+    z = b.solve_witness([3])
+    r1cs = b.build()
+    t_circuit = time.perf_counter() - t0
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srs = pst13.setup(nv, args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = spartan.SpartanIndex.from_r1cs(r1cs, device=dev)
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = spartan.prove(index, srs, z)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    ok = spartan.verify(index, srs, [3], proof)
+    t_verify = time.perf_counter() - t0
+    bad = spartan.verify(index, srs, [3], proof._replace(
+        va=(proof.va + 1) % spartan.MOD))
+    if not ok or bad:
+        raise AssertionError(f"verify(proof)={ok} verify(tampered)={bad}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    log(f"[slice] squaring_chain(2^{nv} - 4) nv={nv}: circuit+witness "
+        f"{t_circuit:.2f} s (host), setup {t_setup:.2f} s, index "
+        f"{t_index:.2f} s, prove {t_prove:.2f} s, verify {t_verify:.2f} s "
+        f"(host) -> True, "
+        f"tampered va -> False; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}")
+
+    # references of the repository: the tracked SRS and the CPU plain path
+    with open(os.path.join(HERE, ".srs_cache", "srs_10_7.pkl"), "rb") as fh:
+        raw = pickle.load(fh)
+    want = convert.srs_from_raw(raw, device="cpu")
+    got = pst13.setup(10, 7, device=dev)
+    for lg, lw in zip(got.ck_levels, want.ck_levels):
+        if not (torch.equal(lg.x.cpu(), lw.x) and torch.equal(lg.y.cpu(), lw.y)):
+            raise AssertionError("setup(10, 7) on the card != srs_10_7.pkl")
+    if got.h_taus != want.h_taus:
+        raise AssertionError("setup(10, 7) G2 points != srs_10_7.pkl")
+    with open(os.path.join(HERE, ".srs_cache", "srs_3_2.pkl"), "rb") as fh:
+        raw3 = pickle.load(fh)
+    cubic = cubic_circuit(R1CSBuilder).build()
+    zc = [1, 35, 3, 9, 27]
+    proofs = []
+    for d in (dev, torch.device("cpu")):
+        srs3 = convert.srs_from_raw(raw3, device=d)
+        proofs.append(spartan.prove(
+            spartan.SpartanIndex.from_r1cs(cubic, device=d), srs3, zc))
+    if proofs[0] != proofs[1]:
+        raise AssertionError("cubic proof on the card != plain CPU proof")
+    log("[slice] setup(10, 7) on the card == .srs_cache/srs_10_7.pkl; cubic "
+        "circuit proof on the card == plain CPU proof")
+    return r1cs, srs, z, proof
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where the prove's time goes
+# ---------------------------------------------------------------------------
+
+
+def profile_phase(torch, dev, r1cs, srs, z, want) -> None:
+    from co_zkvms_tpu_torch.models import spartan
+    from co_zkvms_tpu_torch.utils import phases
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        index = spartan.SpartanIndex.from_r1cs(r1cs, device=dev)
+        proof = spartan.prove(index, srs, z)
+        torch.cuda.synchronize()
+    if proof != want:
+        raise AssertionError("profiled prove != the slice's proof")
+    events = prof.events()
+    rows, idle = phases.phase_table(events)
+    if idle is None:
+        log("[profile] the profiler recorded no device work: device busy "
+            "time and idle share not measured")
+    else:
+        log(f"[profile] under torch.profiler: device idle {100 * idle:.1f} % "
+            f"of the prove (busy = union of kernel/memcpy/memset intervals)")
+    for row in rows:
+        log(f"[profile]   {row.name:12s} host {row.host_s:8.4f} s   "
+            f"device busy {row.device_s:8.4f} s")
+    per_kernel = {}
+    for e in events:
+        if phases.is_device_work(e):
+            tot, cnt = per_kernel.get(e.name, (0.0, 0))
+            per_kernel[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    log(f"[profile]   device work: {sum(c for _, c in per_kernel.values())} "
+        f"events of {len(per_kernel)} names, by device time:")
+    for key, (us, cnt) in sorted(per_kernel.items(),
+                                 key=lambda kv: -kv[1][0])[:8]:
+        log(f"[profile]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

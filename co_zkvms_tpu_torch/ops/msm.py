@@ -1,0 +1,366 @@
+"""Multi-scalar multiplication: Pippenger with buckets over sorted digits.
+
+Per window of c bits, the point indices are sorted by digit (``torch.sort``,
+glue, as ``lax.sort`` is outside the TPU kernel), so every bucket is a
+contiguous run; ``bucket_accumulate`` (kernel B8, ``ops/csrc/msm_bucket.cu``)
+sums each run with the complete mixed add. The top window, which holds only
+254 mod c bits, is first spread over all 2^c buckets by point group and
+folded back with complete adds (``_top_regroup``, as in the JAX package).
+The weighted bucket sum sum_b b * S_b runs on the device with the JAX
+package's digit split: two marginal trees of incomplete adds (B7), two
+double suffix scans (B7 then the complete add B5, because the second scan
+adds equal points whenever a run of buckets is empty), then doublings (B6).
+The few window sums meet on the host, where a Horner pass over Python ints
+combines them, as in the JAX package's ``_horner_affine_ints``.
+
+As in the JAX package, the incomplete adds assume the points are
+independent bases (an SRS): two disjoint subset sums of them never
+coincide, short of a discrete-log relation.
+
+Not ported, because they work around TPU limits: the dense [R, 16, nb]
+grid, the quantised grid depths, the by-value path, the host-gating phases
+and the digit-buffer budget. Any correct MSM gives the same point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import curve as C
+from . import field as F
+from .curve import APoint, JPoint
+from .field import FR
+from ..utils import build
+
+SCALAR_BITS = 254
+
+
+def n_windows(c: int) -> int:
+    return (SCALAR_BITS + c - 1) // c
+
+
+def auto_c(n: int) -> int:
+    """Window bits for n points: about 4 points per bucket, c in [2, 16]
+    (capped at 16, so 2^20 points get 16 a bucket)."""
+    return max(2, min(16, n.bit_length() - 1 - 2))
+
+
+def window_digits(scalars_mont, c: int) -> torch.Tensor:
+    """Montgomery Fr scalars [N, 8] -> window digits int64 [n_windows, N]."""
+    if not 1 <= c <= 16:
+        raise ValueError(f"window bits must be in [1, 16], got {c}")
+    std = F.as_u32(F.from_mont(FR, scalars_mont))          # [N, 8] int64
+    mask = (1 << c) - 1
+    outs = []
+    for w in range(n_windows(c)):
+        bit0 = w * c
+        limb, off = bit0 // 32, bit0 % 32
+        d = std[:, limb] >> off
+        if off + c > 32 and limb + 1 < 8:
+            d = d | (std[:, limb + 1] << (32 - off))
+        outs.append(d & mask)
+    return torch.stack(outs, dim=0)
+
+
+def sort_windows(digits: torch.Tensor, c: int):
+    """Point indices sorted by digit per window, and bucket starts.
+
+    Returns (order int32 [nw, N], starts int32 [nw, 2^c + 1]): bucket b of
+    window w is order[w, starts[w, b]:starts[w, b + 1]]."""
+    nw = digits.shape[0]
+    sorted_d, order = torch.sort(digits, dim=1, stable=True)
+    bounds = torch.arange((1 << c) + 1, dtype=sorted_d.dtype,
+                          device=digits.device).expand(nw, -1).contiguous()
+    starts = torch.searchsorted(sorted_d, bounds)
+    return order.to(torch.int32), starts.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# B8: bucket accumulation
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+MSM_BUCKET = build.KernelFn(
+    "msm_bucket_accumulate", "msm_bucket", "msm_bucket_accumulate",
+    [_P] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P],
+    replaces="co_zkvms_tpu/ops/curve_pallas.py:320")
+
+
+def bucket_accumulate_plain(points: APoint, order, starts) -> JPoint:
+    """Plain version of B8: bucket (w, b) = the sum, in run order, of the
+    points of its run, folded with the complete mixed add from infinity.
+    Step t adds the t-th point of every bucket that has one."""
+    nw, nb = starts.shape[0], starts.shape[1] - 1
+    device = points.x.device
+    begin = starts[:, :-1].to(torch.int64)
+    count = (starts[:, 1:] - starts[:, :-1]).to(torch.int64)
+    count[:, 0] = 0                      # bucket 0 never accumulates
+    begin, count = begin.reshape(-1), count.reshape(-1)
+    window = torch.arange(nw, device=device).repeat_interleave(nb)
+    acc = C.infinity((nw * nb,), device)
+    steps = int(count.max()) if count.numel() else 0
+    for t in range(steps):
+        live = torch.nonzero(count > t).squeeze(1)
+        idx = order[window[live], begin[live] + t].to(torch.int64)
+        new = C.add_mixed_plain(C.index(acc, live),
+                                APoint(points.x[idx], points.y[idx]))
+        for dst, src in zip(acc, new):
+            dst[live] = src
+    return JPoint(*(c.reshape(nw, nb, F.NLIMBS) for c in acc))
+
+
+def bucket_accumulate(points: APoint, order, starts) -> JPoint:
+    """Bucket sums [nw, nb] for sorted windows (kernel B8 on cuda)."""
+    if F.on_cpu(points.x, points.y, order, starts):
+        return bucket_accumulate_plain(points, order, starts)
+    nw, nb = starts.shape[0], starts.shape[1] - 1
+    n = order.shape[1]
+    for t, dt in ((points.x, torch.int32), (points.y, torch.int32),
+                  (order, torch.int32), (starts, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous():
+            raise TypeError("bucket_accumulate takes contiguous int32 tensors")
+    if points.x.shape != (n, F.NLIMBS) or points.y.shape != (n, F.NLIMBS):
+        raise ValueError("points and order disagree on N")
+    out = [torch.empty((nw, nb, F.NLIMBS), dtype=torch.int32,
+                       device=points.x.device) for _ in range(3)]
+    MSM_BUCKET(points.x.data_ptr(), points.y.data_ptr(), order.data_ptr(),
+               starts.data_ptr(), *(o.data_ptr() for o in out), nw, nb, n,
+               build.stream_ptr(points.x.device))
+    return JPoint(*out)
+
+
+# ---------------------------------------------------------------------------
+# Weighted bucket sums and window combination
+# ---------------------------------------------------------------------------
+
+
+def _shift_down(t: JPoint, s: int) -> JPoint:
+    """partner[:, b] = t[:, b + s], infinity past the end (axis 1)."""
+    nw, nb = t.x.shape[0], t.x.shape[1]
+    inf = C.infinity((nw, min(s, nb)), t.x.device)
+    return C.cat([C.index(t, (slice(None), slice(s, None))), inf], dim=1)
+
+
+def _suffix_weighted(t: JPoint, bits: int) -> JPoint:
+    """sum_b b * t_b over [nw, nb] buckets via a double suffix scan.
+
+    Fold 1 adds sums of disjoint bucket subsets: the incomplete add is
+    sound. Fold 2 adds suffix-cumulative values, which are EQUAL across a
+    run of empty buckets: it needs the complete add (the round-4 lesson of
+    the JAX package, ``msm.py:432-443``)."""
+
+    def fold(t, complete):
+        for lvl in range(bits):
+            partner = _shift_down(t, 1 << lvl)
+            t = C.add(t, partner) if complete else C.add_incomplete(t, partner)
+        return t
+
+    t = fold(t, complete=False)
+    nw = t.x.shape[0]
+    t = C.cat([C.infinity((nw, 1), t.x.device),
+               C.index(t, (slice(None), slice(1, None)))], dim=1)
+    total = fold(t, complete=True)
+    return C.index(total, (slice(None), 0))
+
+
+def _axis_reduce(t: JPoint, dim: int) -> JPoint:
+    """Tree-sum along ``dim`` with incomplete adds (disjoint subsets)."""
+    while t.x.shape[dim] > 1:
+        half = t.x.shape[dim] // 2
+        a = JPoint(*(c.narrow(dim, 0, half) for c in t))
+        b = JPoint(*(c.narrow(dim, half, half) for c in t))
+        t = C.add_incomplete(a, b)
+    return t
+
+
+def weighted_bucket_sum(buckets: JPoint, c: int) -> JPoint:
+    """sum_b b * S_b per window [nw], digit split b = hi * 2^l + lo:
+
+        sum_b b S_b = 2^l * sum_hi hi (sum_lo S) + sum_lo lo (sum_hi S)."""
+    nw, nb = buckets.x.shape[0], buckets.x.shape[1]
+    if nb <= 16:
+        return _suffix_weighted(buckets, c)
+    lbits = c // 2
+    hbits = c - lbits
+    grid = JPoint(*(v.reshape(nw, 1 << hbits, 1 << lbits, F.NLIMBS)
+                    for v in buckets))
+    s_hi = JPoint(*(v[:, :, 0] for v in _axis_reduce(grid, dim=2)))
+    s_lo = JPoint(*(v[:, 0] for v in _axis_reduce(grid, dim=1)))
+    w_hi = _suffix_weighted(s_hi, hbits)
+    w_lo = _suffix_weighted(s_lo, lbits)
+    for _ in range(lbits):
+        w_hi = C.double(w_hi)
+    return C.add(w_hi, w_lo)
+
+
+def _affine_dbl(pt):
+    """2 * pt on the host over Fq ints; None is infinity."""
+    if pt is None:
+        return None
+    p = F.FQ_MODULUS
+    x, y = pt
+    if y == 0:
+        return None
+    m = 3 * x * x * pow(2 * y, -1, p) % p
+    nx = (m * m - 2 * x) % p
+    return (nx, (m * (x - nx) - y) % p)
+
+
+def _affine_add(p1, p2):
+    """p1 + p2 on the host over Fq ints; None is infinity."""
+    if p1 is None:
+        return p2
+    if p2 is None:
+        return p1
+    p = F.FQ_MODULUS
+    (x1, y1), (x2, y2) = p1, p2
+    if x1 == x2:
+        return _affine_dbl(p1) if y1 == y2 else None
+    m = (y2 - y1) * pow(x2 - x1, -1, p) % p
+    nx = (m * m - x1 - x2) % p
+    return (nx, (m * (x1 - nx) - y1) % p)
+
+
+def horner_affine_ints(aff, c: int) -> tuple:
+    """sum_w 2^(c w) S_w on the host over affine window sums ``aff`` (list
+    of (x, y) ints, low window first, (0, 0) = infinity)."""
+    acc = None
+    for xy in reversed(aff):
+        for _ in range(c):
+            acc = _affine_dbl(acc)
+        acc = _affine_add(acc, None if xy == (0, 0) else xy)
+    return (0, 0) if acc is None else acc
+
+
+def _top_regroup(digits: torch.Tensor, c: int):
+    """Spread the top window over all 2^c buckets.
+
+    254 bits leave the top window only 254 - (nw - 1) c bits (2 at c = 12
+    or 14), so its few buckets would each hold a large share of all points
+    and one thread would walk each of them serially. As the JAX package's
+    ``_top_regroup``: point i of group g = i // (n / k) puts top digit d in
+    bucket g * nb_top + d (d = 0 stays 0). Returns (digits, k, nb_top)."""
+    nw, n = digits.shape
+    top_bits = max(1, SCALAR_BITS - (nw - 1) * c)
+    nb_top = 1 << top_bits
+    k = max(1, min((1 << c) >> top_bits, n & -n))
+    if k == 1:
+        return digits, 1, nb_top
+    group = torch.arange(n, device=digits.device) // (n // k)
+    top = digits[-1]
+    regrouped = torch.where(top == 0, top, top + group * nb_top)
+    return torch.cat([digits[:-1], regrouped[None]]), k, nb_top
+
+
+def _fold_top(buckets: JPoint, k: int, nb_top: int) -> JPoint:
+    """Sum the regrouped top window's k groups digit by digit, with the
+    COMPLETE add (two groups' sums are equal when points repeat), and pad
+    it back to 2^c buckets with infinity."""
+    if k == 1:
+        return buckets
+    nw, nb = buckets.x.shape[0], buckets.x.shape[1]
+    top = JPoint(*(v[-1, : k * nb_top].reshape(k, nb_top, F.NLIMBS)
+                   for v in buckets))
+    while top.x.shape[0] > 1:
+        half = top.x.shape[0] // 2
+        top = C.add(C.index(top, slice(0, half)), C.index(top, slice(half, None)))
+    inf = C.infinity((1, nb - nb_top), buckets.x.device)
+    top = C.cat([top, inf], dim=1)
+    return C.cat([C.index(buckets, slice(0, nw - 1)), top])
+
+
+def sorted_windows(scalars_mont, c: int):
+    """Bucket runs of every window, top window regrouped: (order, starts,
+    k, nb_top) for ``bucket_accumulate`` and ``_fold_top``."""
+    digits, k, nb_top = _top_regroup(window_digits(scalars_mont, c), c)
+    order, starts = sort_windows(digits, c)
+    return order, starts, k, nb_top
+
+
+def window_sums(points: APoint, scalars_mont, c: int | None = None):
+    """Per-window weighted sums JPoint [nw] and the window bits used."""
+    n = points.x.shape[0]
+    if c is None:
+        c = auto_c(n)
+    order, starts, k, nb_top = sorted_windows(scalars_mont, c)
+    buckets = _fold_top(bucket_accumulate(points, order, starts), k, nb_top)
+    return weighted_bucket_sum(buckets, c), c
+
+
+def msm(points: APoint, scalars_mont, c: int | None = None) -> JPoint:
+    """sum_i scalars[i] * points[i] as a batch-1 JPoint.
+
+    ``points``: affine batch [N]; ``scalars_mont``: Fr Montgomery [N, 8];
+    ``c``: window bits (None sizes them to N; the result is the same point
+    for every c)."""
+    sums, c = window_sums(points, scalars_mont, c)
+    xy = horner_affine_ints(C.points_to_ints(C.to_affine(sums)), c)
+    return C.from_affine(C.points_from_ints([xy], device=points.x.device))
+
+
+def msm_batch_ints(jobs, chunk: int = 64) -> list:
+    """Many independent MSMs: ``jobs`` is a list of (APoint [N_i], Fr
+    Montgomery scalars [N_i, 8]); returns one affine (x, y) int pair per job
+    ((0, 0) = infinity). Window sums of up to ``chunk`` jobs go through one
+    batched affine conversion and one device-to-host copy."""
+    out = []
+    for s in range(0, len(jobs), chunk):
+        sums, bits = [], []
+        for pts, sc in jobs[s:s + chunk]:
+            w, c = window_sums(pts, sc)
+            sums.append(w)
+            bits.append(c)
+        aff = C.points_to_ints(C.to_affine(C.cat(sums)))
+        off = 0
+        for w, c in zip(sums, bits):
+            nw = w.x.shape[0]
+            out.append(horner_affine_ints(aff[off:off + nw], c))
+            off += nw
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fixed-base MSM (SRS generation: one base, many scalars)
+# ---------------------------------------------------------------------------
+
+
+def fixed_base_table(base: APoint, c: int) -> APoint:
+    """T[w, d] = d * 2^(c w) * base, affine, [nw, 2^c]; T[w, 0] = (0, 0).
+
+    The nw window bases 2^(c w) * base are host ints; the device then
+    fills all windows at once by bits: with P_k = 2^k B_w (doublings, B6),
+    T <- [T, T + P_k] (complete adds, B5) for k = 0..c-1."""
+    nw = n_windows(c)
+    device = base.x.device
+    pt = C.points_to_ints(APoint(base.x.reshape(1, F.NLIMBS),
+                                 base.y.reshape(1, F.NLIMBS)))[0]
+    pt = None if pt == (0, 0) else pt
+    bases = []
+    for _ in range(nw):
+        bases.append((0, 0) if pt is None else pt)
+        for _ in range(c):
+            pt = _affine_dbl(pt)
+    pk = C.from_affine(C.points_from_ints(bases, device=device))   # [nw]
+    table = C.infinity((nw, 1), device)
+    for k in range(c):
+        if k:
+            pk = C.double(pk)
+        step = JPoint(*(v[:, None].expand(nw, table.x.shape[1], F.NLIMBS)
+                        for v in pk))
+        table = C.cat([table, C.add(table, step)], dim=1)
+    aff = C.to_affine(table)
+    return APoint(aff.x.contiguous(), aff.y.contiguous())
+
+
+def fixed_base_msm(base: APoint, scalars_mont, c: int = 8) -> JPoint:
+    """base * s_i for every scalar; returns a Jacobian batch [N]."""
+    table = fixed_base_table(base, c)
+    digits = window_digits(scalars_mont, c)
+    n = scalars_mont.shape[0]
+    acc = C.infinity((n,), scalars_mont.device)
+    for w in range(digits.shape[0]):
+        acc = C.add_mixed(acc, APoint(table.x[w][digits[w]],
+                                      table.y[w][digits[w]]))
+    return acc

@@ -1,0 +1,172 @@
+"""The CUDA kernels' own arithmetic, compiled as host C++.
+
+ops/csrc/field.cuh and g1.cuh compile with a host compiler too (FDEV ->
+inline). This test builds a small harness over them with g++ and holds the
+kernels' Montgomery products, modular add/sub and G1 formulas to the port's
+plain PyTorch versions bit for bit, edge rows included. No nvcc is needed;
+without g++ the test skips.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from co_zkvms_tpu.ops import ref_bn254 as bn
+
+
+torch = C = F = build = None  # bound by _port()
+
+
+def _port():
+    """Import torch and the port when the first test of this module runs,
+    not at collection: an xdist worker that runs none of these tests
+    never loads them."""
+    global torch, C, F, build
+    import torch
+    from co_zkvms_tpu_torch.ops import curve as C
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.utils import build
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_loaded():
+    _port()
+
+
+HARNESS = r"""
+#include "g1.cuh"
+using namespace bn254;
+typedef uint32_t u32;
+extern "C" {
+void h_mul(int f, const u32* a, const u32* b, u32* r, int n) {
+  for (int i = 0; i < n; i++) {
+    if (f == 0) mont_mul<0>(r + 8 * i, a + 8 * i, b + 8 * i);
+    else mont_mul<1>(r + 8 * i, a + 8 * i, b + 8 * i);
+  }
+}
+void h_sqr(int f, const u32* a, u32* r, int n) {
+  for (int i = 0; i < n; i++) {
+    if (f == 0) mont_sqr<0>(r + 8 * i, a + 8 * i);
+    else mont_sqr<1>(r + 8 * i, a + 8 * i);
+  }
+}
+void h_add(int f, const u32* a, const u32* b, u32* r, int n) {
+  for (int i = 0; i < n; i++) {
+    if (f == 0) mod_add<0>(r + 8 * i, a + 8 * i, b + 8 * i);
+    else mod_add<1>(r + 8 * i, a + 8 * i, b + 8 * i);
+  }
+}
+void h_sub(int f, const u32* a, const u32* b, u32* r, int n) {
+  for (int i = 0; i < n; i++) {
+    if (f == 0) mod_sub<0>(r + 8 * i, a + 8 * i, b + 8 * i);
+    else mod_sub<1>(r + 8 * i, a + 8 * i, b + 8 * i);
+  }
+}
+static void ld(Jac& p, const u32* const* c, int i) {
+  fe_copy(p.x, c[0] + 8 * i); fe_copy(p.y, c[1] + 8 * i);
+  fe_copy(p.z, c[2] + 8 * i);
+}
+static void st(u32* const* c, int i, const Jac& p) {
+  fe_copy(c[0] + 8 * i, p.x); fe_copy(c[1] + 8 * i, p.y);
+  fe_copy(c[2] + 8 * i, p.z);
+}
+// op: 0 mixed add (q = x, y), 1 add, 2 incomplete add, 3 double
+void h_g1(int op, const u32* const* p, const u32* const* q, u32* const* o,
+          int n) {
+  for (int i = 0; i < n; i++) {
+    Jac a, b, r;
+    ld(a, p, i);
+    if (op == 0) { jac_add_mixed(r, a, q[0] + 8 * i, q[1] + 8 * i); }
+    else if (op == 3) { jac_double(r, a); }
+    else { ld(b, q, i); if (op == 1) jac_add(r, a, b);
+           else jac_add_incomplete(r, a, b); }
+    st(o, i, r);
+  }
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA headers as host C++")
+    d = tmp_path_factory.mktemp("csrc_host")
+    src = d / "harness.cpp"
+    src.write_text(HARNESS)
+    so = d / "libharness.so"
+    subprocess.run([gxx, "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+                    "-I", build.CSRC, "-o", str(so), str(src)], check=True,
+                   capture_output=True, timeout=300)
+    return ctypes.CDLL(str(so))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _ptrs(coords):
+    arr = (ctypes.c_void_p * 3)(*(c.data_ptr() for c in coords))
+    return arr
+
+
+def _fe(rng, spec, n):
+    vals = [int.from_bytes(rng.bytes(32), "little") % spec.modulus
+            for _ in range(n)]
+    vals[:3] = [0, 1, spec.modulus - 1]
+    return F.from_int(spec, vals, device="cpu").contiguous()
+
+
+@pytest.mark.parametrize("spec", ["FR", "FQ"], ids=["fr", "fq"])
+def test_field_arithmetic_matches_plain(lib, spec):
+    spec = getattr(F, spec)
+    rng = np.random.default_rng(51)
+    n = 256
+    a, b = _fe(rng, spec, n), _fe(rng, spec, n).flip(0).contiguous()
+    # mul also takes any a < 2^256 (lazy_reduce relies on it)
+    wide = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(n, 8),
+                                         dtype=np.int64).astype(np.int32))
+    for fn, args, want in (
+            (lib.h_mul, (a, b), F.mul_plain(spec, a, b)),
+            (lib.h_mul, (wide, b), F.mul_plain(spec, wide, b)),
+            (lib.h_sqr, (a,), F.square_plain(spec, a)),
+            (lib.h_add, (a, b), F.add_plain(spec, a, b)),
+            (lib.h_sub, (a, b), F.sub_plain(spec, a, b))):
+        out = torch.empty_like(a)
+        fn(spec.fid, *(_ptr(t) for t in args), _ptr(out), n)
+        assert torch.equal(out, want), fn.__name__
+
+
+def _jacobian(points):
+    """Jacobian points with z != 1: double(p / 2), p / 2 = p (r + 1) / 2."""
+    half = [None if p is None else bn.scalar_mul(p, (bn.R_ORDER + 1) // 2)
+            for p in points]
+    return C.double(C.from_affine(C.points_from_ints(
+        [bn.g1_coords(p) for p in half], device="cpu")))
+
+
+def test_g1_formulas_match_plain(lib):
+    """Rows: 0 p == q, 1 p == -q, 2 p = inf, 3 q = inf, 4 both inf."""
+    rng = np.random.default_rng(52)
+    ps = [bn.scalar_mul(bn.G1_GEN, int(rng.integers(1, 1 << 62)))
+          for _ in range(12)]
+    qs = [bn.scalar_mul(bn.G1_GEN, int(rng.integers(1, 1 << 62)))
+          for _ in range(12)]
+    qs[0], qs[1] = ps[0], bn.neg_pt(ps[1])
+    ps[2] = qs[3] = ps[4] = qs[4] = None
+    qa = C.points_from_ints([bn.g1_coords(q) for q in qs], device="cpu")
+    pj, qj = _jacobian(ps), _jacobian(qs)
+    cases = ((0, qa, C.add_mixed_plain(pj, qa)),
+             (1, qj, C.add_plain(pj, qj)),
+             (2, qj, C.add_incomplete_plain(pj, qj)),
+             (3, qj, C.double_plain(pj)))
+    for op, q, want in cases:
+        out = [torch.empty_like(pj.x) for _ in range(3)]
+        qc = [c.contiguous() for c in q]
+        lib.h_g1(op, _ptrs(pj), _ptrs(qc + qc[:3 - len(qc)]), _ptrs(out),
+                 len(ps))
+        assert all(torch.equal(o, w) for o, w in zip(out, want)), op

@@ -1,0 +1,150 @@
+"""Rules of the co_zkvms_tpu_torch package: it imports neither JAX nor the
+JAX package, its entry points refuse to run without a card unless asked for
+the CPU, and its wrappers never mix devices. Tests that need the card carry
+the ``cuda`` marker and decide to skip inside the test."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+
+# bound by _port()
+torch = S = squaring_chain = C = F = M = pst13 = build = None
+
+
+def _port():
+    """Import torch and the port when the first test of this module runs,
+    not at collection: an xdist worker that runs none of these tests
+    never loads them."""
+    global torch, S, squaring_chain, C, F, M, pst13, build
+    import torch
+    from co_zkvms_tpu_torch.models import spartan as S
+    from co_zkvms_tpu_torch.models.synthetic import squaring_chain
+    from co_zkvms_tpu_torch.ops import curve as C
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import msm as M
+    from co_zkvms_tpu_torch.ops import pst13
+    from co_zkvms_tpu_torch.utils import build
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_loaded():
+    _port()
+
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(ROOT, "co_zkvms_tpu_torch")
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|co_zkvms_tpu)\b",
+                       re.MULTILINE)
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out.extend(os.path.join(d, f) for f in files if f.endswith(".py"))
+    return sorted(out)
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    srcs = _sources()
+    assert len(srcs) > 10
+    for path in srcs:
+        with open(path) as fh:
+            hits = FORBIDDEN.findall(fh.read())
+        assert not hits, f"{path} imports {hits}"
+
+
+def test_importing_the_package_loads_no_jax():
+    mods = ["co_zkvms_tpu_torch.models.spartan", "co_zkvms_tpu_torch.ops.msm",
+            "co_zkvms_tpu_torch.utils.convert", "co_zkvms_tpu_torch.ops.pst13"]
+    prog = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'co_zkvms_tpu'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", prog], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pst13.setup(3, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        S.SpartanIndex.from_r1cs(squaring_chain(4).build())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        F.from_int(F.FR, [1, 2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        C.points_from_ints([(1, 2)])
+
+
+def test_wrappers_reject_mixed_or_foreign_devices():
+    a = F.from_int(F.FR, [3, 4], device="cpu")
+    meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        F.mul(F.FR, a, meta)
+    with pytest.raises(ValueError):
+        C.double(C.JPoint(meta, meta, meta))
+    with pytest.raises(TypeError):
+        F._launch_binary(F.FP_MUL, F.FR, a.to(torch.int64), a)
+
+
+def test_every_kernel_names_its_source_and_tpu_kernel():
+    names = set(build.KERNELS)
+    assert names == {"fp_mul", "fp_square", "fp_add", "fp_sub",
+                     "g1_add_mixed", "g1_add", "g1_double",
+                     "g1_add_incomplete", "msm_bucket_accumulate"}
+    for k in build.KERNELS.values():
+        assert k.source in build.SOURCES
+        assert os.path.exists(os.path.join(build.CSRC, f"{k.source}.cu"))
+        path, line = k.replaces.split(":")
+        with open(os.path.join(ROOT, path)) as fh:
+            text = fh.read().splitlines()[int(line) - 1]
+        assert text.startswith("def "), (k.name, text)
+
+
+def test_ptxas_summary_parses_registers_and_spills():
+    log = ("ptxas info    : Compiling entry function '_Z6kernelPj' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z6kernelPj\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 0 barriers\n")
+    lines = build.ptxas_summary(log)
+    assert lines == ["_Z6kernelPj: 128 registers, 4 bytes spill stores"]
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python3 chip_smoke.py)")
+    gen = torch.Generator().manual_seed(5)
+    n = 1 << 12
+    w = torch.randint(0, 1 << 31, (n, 8), generator=gen, dtype=torch.int64)
+    w[:, 7] %= 0x30644E72
+    a = w.to(torch.int32).cuda()
+    b = a.flip(0).contiguous()
+    for spec in (F.FR, F.FQ):
+        assert torch.equal(F.mul(spec, a, b), F.mul_plain(spec, a, b))
+        assert torch.equal(F.square(spec, a), F.square_plain(spec, a))
+        assert torch.equal(F.add(spec, a, b), F.add_plain(spec, a, b))
+        assert torch.equal(F.sub(spec, a, b), F.sub_plain(spec, a, b))
+    s = F.to_mont(F.FR, a[:256])
+    g = C.points_from_ints([(1, 2)], device="cuda")
+    pts = C.to_affine(M.fixed_base_msm(C.APoint(g.x[0], g.y[0]), s))
+    p = C.double(C.from_affine(pts))
+    q = C.double(p)
+    for got, want in ((C.add(p, q), C.add_plain(p, q)),
+                      (C.add_incomplete(p, q), C.add_incomplete_plain(p, q)),
+                      (C.double(p), C.double_plain(p)),
+                      (C.add_mixed(p, pts), C.add_mixed_plain(p, pts))):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    order, starts = M.sort_windows(M.window_digits(s, 4), 4)
+    got = M.bucket_accumulate(pts, order, starts)
+    want = M.bucket_accumulate_plain(pts, order, starts)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
