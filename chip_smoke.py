@@ -12,21 +12,32 @@ before its last line:
               inputs at the main path's shapes, bit-exact (the results are
               field elements and points: there is no tolerance); the time
               per launch from CUDA events beside its bound and the plain
-              version's time.
+              version's time. The sumcheck round kernels (B9 for each comb
+              instance, B11, B10 on tables and on a [3, n, 8] share stack)
+              run at the first round's shapes of the slice's sumchecks.
   4. slice    the main path through the entry points a user calls:
               pst13.setup(nv, 7) and spartan.prove of
               squaring_chain(2^nv - 4) with x = 3 (nv = 20 by default, as the
               JAX package's bench.py sub_spartan(20)); the host verifier
               accepts the proof and rejects a tampered one; every kernel's
-              launch count in that run is > 0. Then two checks against the
-              repository's own references: setup(10, 7) equals the tracked
-              .srs_cache/srs_10_7.pkl, and the cubic circuit's proof on the
-              card equals the one the plain versions make on the CPU.
-  5. profile  the same prove again, with the index rebuilt, under
+              launch count in that run is > 0 (the sumchecks run B9-B11).
+              Then two checks against the repository's own references:
+              setup(10, 7) equals the tracked .srs_cache/srs_10_7.pkl, and
+              the cubic circuit's proof on the card equals the one the plain
+              versions make on the CPU.
+  5. slice2   slice 2 on the same statement: pst13.setup over the DFS
+              entries domain (dlog from spartan_dfs.entries), the DFS index,
+              zk.from_seed; the single-party spartan.prove(dfs=, zk_ctx=) and
+              co_spartan.prove_rep3(dfs=, zk_ctx=) with the same zk rng
+              seed must give equal proofs, field by field; the host verifier
+              accepts and rejects va + 1 and a changed DFS eval; every
+              kernel's launch count in this phase is > 0.
+  6. profile  slice 1's prove again, with the index rebuilt, under
               torch.profiler: each of the prover's named phases
               (models/spartan.py, utils/phases.py) with its host time and
               the device's busy time inside it, and the device's idle share
-              of the prove. The proof must equal the slice's.
+              of the prove. The proof must equal the slice's. Then the same
+              for slice 2's prove_rep3 by its co_spartan.<phase> ranges.
 
 Then it prints one JSON line of kernel records, nvidia-smi's name and power
 limit, and, last, {"ok": true, "device": {...}}.
@@ -108,7 +119,10 @@ def main() -> int:
         log(f"[build]   {line}")
 
     records = kernel_phase(torch, dev, args.nv)
-    profile_phase(torch, dev, *slice_phase(torch, dev, args, records))
+    r1cs, srs, z, proof, index = slice_phase(torch, dev, args, records)
+    rep3 = slice2_phase(torch, dev, args, r1cs, z, index, records)
+    profile_phase(torch, dev, r1cs, srs, z, proof)
+    profile_rep3_phase(torch, dev, index, z, args.seed, *rep3)
 
     print(json.dumps({"kernels": records}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -302,7 +316,79 @@ def kernel_phase(torch, dev, nv: int) -> list:
         line.append(f"{label} {ms:.3f} ms (fullest bucket {occ} points)")
     log(f"[kernels] msm_bucket_accumulate 2^{nv - 4} points c={c_open}, top "
         f"window {line[0]}, {line[1]}")
+    sumcheck_kernels(torch, dev, gen, nv, records)
     return records
+
+
+def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
+    """B9-B11 at the first round's shapes of the slice's sumchecks: the
+    outer comb on 3 tables of 2^nv entries + a 2^(nv-1) suffix, the inner
+    on 2 tables; B10 on 3 tables and on a [3, 2^nv, 8] share stack."""
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import sumcheck as SC
+
+    src = "co_zkvms_tpu_torch/ops/csrc/sumcheck_round.cu"
+    n = 1 << nv
+    h = n // 2
+    suffix = random_fe(torch, gen, h, dev)
+    r = random_fe(torch, gen, 1, dev)[0]
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        if not same(torch, got, want):
+            raise AssertionError(f"{name}: kernel != plain")
+
+    for comb in (SC.OUTER, SC.INNER):
+        tabs = torch.stack([random_fe(torch, gen, n, dev)
+                            for _ in range(comb.n_tables)])
+        tabs[:, 0] = 0                                  # a zero pair member
+        tabs[:, 1] = F.constant(F.FR, F.FR.modulus - 1, dev)
+        suf = suffix if comb.split_eq else None
+        got = SC.eval_partials(F.FR, comb, tabs, suf)
+        check(f"sc_eval_round {comb.name}", got,
+              SC.eval_partials_plain(F.FR, comb, tabs, suf,
+                                     blocks=got.shape[0]))
+        ms = cuda_ms(torch, lambda: SC.eval_partials(F.FR, comb, tabs, suf), 20)
+        pms = cuda_ms(torch, lambda: SC.eval_partials_plain(
+            F.FR, comb, tabs, suf, blocks=got.shape[0]), 1)
+        d1 = comb.degree + 1
+        muls = d1 * (2 if comb.split_eq else 1)     # products per pair
+        nbytes = (comb.n_tables * n + (h if suf is not None else 0)) * ELEM
+        nbytes += got.numel() * 4
+        rec = record(comb.kernel, src, ms, pms, nbytes, muls * MUL_OPS * h)
+        records.append(rec)
+        log(f"[kernels] sc_eval_round {comb.name} ({comb.n_tables} x 2^{nv}"
+            f"{' + 2^%d suffix' % (nv - 1) if suf is not None else ''}, "
+            f"{got.shape[0]} partials) bit-exact; {ms:.4f} ms (plain "
+            f"{pms:.2f} ms), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        if comb is SC.OUTER:
+            part = got
+    red = SC.reduce_partials(F.FR, part)
+    check("sc_reduce_partials", red, SC.reduce_partials_plain(F.FR, part))
+    ms = cuda_ms(torch, lambda: SC.reduce_partials(F.FR, part), 50)
+    pms = cuda_ms(torch, lambda: SC.reduce_partials_plain(F.FR, part), 3)
+    records.append(record(SC.SC_REDUCE, src, ms, pms,
+                          (part.numel() + red.numel()) * 4, 0))
+    log(f"[kernels] sc_reduce_partials {tuple(part.shape)} bit-exact; "
+        f"{ms:.4f} ms (plain {pms:.2f} ms), bound "
+        f"{records[-1]['bound_ms']:.6f} ms ({records[-1]['bound_by']})")
+
+    bind_ms = {}
+    for label, stack in (("3 tables", torch.stack(
+            [random_fe(torch, gen, n, dev) for _ in range(3)])),
+            ("[3, 2^%d, 8] shares" % nv, random_fe(
+                torch, gen, 3 * n, dev).reshape(3, n, 8))):
+        got = SC.bind_rows(F.FR, stack, r)
+        check(f"sc_bind_round {label}", got, SC.bind_rows_plain(F.FR, stack, r))
+        bind_ms[label] = (cuda_ms(torch, lambda: SC.bind_rows(F.FR, stack, r), 20),
+                          cuda_ms(torch, lambda: SC.bind_rows_plain(
+                              F.FR, stack, r), 1))
+    ms, pms = bind_ms["3 tables"]
+    records.append(record(SC.SC_BIND, src, ms, pms, (3 * n + 3 * h) * ELEM,
+                          3 * h * MUL_OPS))
+    log(f"[kernels] sc_bind_round bit-exact on " + ", ".join(
+        f"{k}: {v[0]:.4f} ms (plain {v[1]:.2f} ms)" for k, v in bind_ms.items())
+        + f"; bound {records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +482,110 @@ def slice_phase(torch, dev, args, records) -> tuple:
         raise AssertionError("cubic proof on the card != plain CPU proof")
     log("[slice] setup(10, 7) on the card == .srs_cache/srs_10_7.pkl; cubic "
         "circuit proof on the card == plain CPU proof")
-    return r1cs, srs, z, proof
+    return r1cs, srs, z, proof, index
+
+
+# ---------------------------------------------------------------------------
+# phase 5: slice 2, co-Spartan with zk and the DFS round
+# ---------------------------------------------------------------------------
+
+
+def first_difference(a, b):
+    """The first field of two proofs that differs, or None."""
+    for field in a._fields:
+        if getattr(a, field) != getattr(b, field):
+            return field
+    return None
+
+
+def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
+    import random
+
+    from co_zkvms_tpu_torch.models import co_spartan, spartan, spartan_dfs
+    from co_zkvms_tpu_torch.ops import msm as M
+    from co_zkvms_tpu_torch.ops import pst13, zk
+    from co_zkvms_tpu_torch.utils import build
+
+    nv = args.nv
+    t0 = time.perf_counter()
+    dlog = spartan_dfs.entries(r1cs).dlog
+    t_entries = time.perf_counter() - t0
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srs = pst13.setup(dlog, args.seed, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfs = spartan_dfs.build_index(r1cs, srs)
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = zk.from_seed(srs.nv, seed=args.seed, max_deg=4)
+    t_params = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    single = spartan.prove(index, srs, z, dfs=dfs,
+                           zk_ctx=(params, random.Random(args.seed)))
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep3 = co_spartan.prove_rep3(index, srs, z, dfs=dfs,
+                                 zk_ctx=(params, random.Random(args.seed)))
+    torch.cuda.synchronize()
+    t_rep3 = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    diff = first_difference(rep3, single)
+    if diff is not None:
+        raise AssertionError(f"prove_rep3 != single-party proof at {diff}")
+    if single.zk is None or single.dfs is None:
+        raise AssertionError("the slice-2 proof lacks its zk or dfs part")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in slice 2: {missing}")
+    for rec in records:
+        rec["launches_slice2"] = launches[rec["name"]]
+    # the index commits tables of small values (0/1 matrix entries): B8 at
+    # such scalars, where one bucket of window 0 holds most points. Timed
+    # after the counts and the peak were read: the prover makes no such
+    # commit.
+    val_a = dfs.vals[0]
+    order, starts, _, _ = M.sorted_windows(val_a, M.auto_c(val_a.shape[0]))
+    fullest = int((starts[:, 2:] - starts[:, 1:-1]).max())
+    ms_val = cuda_ms(torch, lambda: pst13.commit(srs, val_a), 1)
+
+    def check(proof):
+        return spartan.verify(index, srs, [3], proof, dfs_vk=dfs.vk,
+                              zk_params=params)
+
+    t0 = time.perf_counter()
+    ok = check(rep3)
+    t_verify = time.perf_counter() - t0
+    bad_va = check(rep3._replace(va=(rep3.va + 1) % spartan.MOD))
+    evals = dict(rep3.dfs.evals)
+    evals["val_a"] = (evals["val_a"] + 1) % spartan.MOD
+    bad_dfs = check(rep3._replace(dfs=rep3.dfs._replace(evals=evals)))
+    if not ok or bad_va or bad_dfs:
+        raise AssertionError(f"verify(proof)={ok} verify(va + 1)={bad_va} "
+                             f"verify(dfs val_a + 1)={bad_dfs}")
+    log(f"[slice2] squaring_chain(2^{nv} - 4) nv={nv}, zk + DFS: entries "
+        f"domain dlog={dlog} ({t_entries:.2f} s host)")
+    log(f"[slice2] setup({dlog}, {args.seed}) {t_setup:.2f} s")
+    log(f"[slice2] index (DFS build_index) {t_index:.2f} s; a separate "
+        f"commit of val_a (2^{dlog} entries of 0 or 1) takes {ms_val:.1f} ms, "
+        f"its fullest MSM bucket {fullest} points")
+    log(f"[slice2] zk params (host) {t_params:.2f} s")
+    log(f"[slice2] prove (single party, zk + dfs) {t_single:.2f} s")
+    log(f"[slice2] prove_rep3 (zk + dfs) {t_rep3:.2f} s")
+    log(f"[slice2] prove_rep3 == single-party proof, field by field")
+    log(f"[slice2] verify {t_verify:.2f} s (host) -> True; va + 1 -> False; "
+        f"DFS val_a + 1 -> False")
+    log(f"[slice2] peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[slice2] launches {json.dumps(launches)}")
+    return srs, dfs, params, rep3
 
 
 # ---------------------------------------------------------------------------
@@ -406,7 +595,6 @@ def slice_phase(torch, dev, args, records) -> tuple:
 
 def profile_phase(torch, dev, r1cs, srs, z, want) -> None:
     from co_zkvms_tpu_torch.models import spartan
-    from co_zkvms_tpu_torch.utils import phases
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -416,27 +604,52 @@ def profile_phase(torch, dev, r1cs, srs, z, want) -> None:
         torch.cuda.synchronize()
     if proof != want:
         raise AssertionError("profiled prove != the slice's proof")
-    events = prof.events()
-    rows, idle = phases.phase_table(events)
+    report_profile(prof.events(), "spartan", "profile")
+
+
+def profile_rep3_phase(torch, dev, index, z, seed, srs, dfs, params,
+                       want) -> None:
+    """prove_rep3 (zk + dfs) of slice 2 again under the profiler, by its
+    co_spartan.<phase> ranges."""
+    import random
+
+    from co_zkvms_tpu_torch.models import co_spartan
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        proof = co_spartan.prove_rep3(index, srs, z, dfs=dfs,
+                                      zk_ctx=(params, random.Random(seed)))
+        torch.cuda.synchronize()
+    if proof != want:
+        raise AssertionError("profiled prove_rep3 != the slice-2 proof")
+    report_profile(prof.events(), "co_spartan", "profile2")
+
+
+def report_profile(events, model: str, tag: str) -> None:
+    from co_zkvms_tpu_torch.utils import phases
+
+    rows, idle = phases.phase_table(events, model=model)
     if idle is None:
-        log("[profile] the profiler recorded no device work: device busy "
+        log(f"[{tag}] the profiler recorded no device work: device busy "
             "time and idle share not measured")
     else:
-        log(f"[profile] under torch.profiler: device idle {100 * idle:.1f} % "
-            f"of the prove (busy = union of kernel/memcpy/memset intervals)")
+        log(f"[{tag}] {model}.prove under torch.profiler: device idle "
+            f"{100 * idle:.1f} % of the prove (busy = union of "
+            f"kernel/memcpy/memset intervals)")
     for row in rows:
-        log(f"[profile]   {row.name:12s} host {row.host_s:8.4f} s   "
+        log(f"[{tag}]   {row.name:12s} host {row.host_s:8.4f} s   "
             f"device busy {row.device_s:8.4f} s")
     per_kernel = {}
     for e in events:
         if phases.is_device_work(e):
             tot, cnt = per_kernel.get(e.name, (0.0, 0))
             per_kernel[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    log(f"[profile]   device work: {sum(c for _, c in per_kernel.values())} "
+    log(f"[{tag}]   device work: {sum(c for _, c in per_kernel.values())} "
         f"events of {len(per_kernel)} names, by device time:")
     for key, (us, cnt) in sorted(per_kernel.items(),
                                  key=lambda kv: -kv[1][0])[:8]:
-        log(f"[profile]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
+        log(f"[{tag}]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
 
 
 if __name__ == "__main__":

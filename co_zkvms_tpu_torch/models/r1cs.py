@@ -280,7 +280,10 @@ class DeviceMatrix:
         )
 
     def mul_vec(self, z):
-        """A @ z: ``z`` [n_cols, 8] -> [n_rows, 8]."""
+        """A @ z: ``z`` [n_cols, 8] -> [n_rows, 8], or Rep3 shares [3,
+        n_cols, 8] -> [3, n_rows, 8] (shares are linear: party by party)."""
+        if z.dim() == 3:
+            return torch.stack([self.mul_vec(zp) for zp in z])
         prods = F.mul(FR, self.vals, z[self.cols])
         return F.segment_modsum(FR, prods, self.rows, self.n_rows)
 

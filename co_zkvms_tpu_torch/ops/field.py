@@ -94,13 +94,22 @@ def from_int(spec: FieldSpec, values, mont: bool = True, device="cuda"):
     Montgomery conversion is one product with R^2 on the device."""
     device = build.resolve_device(device)
     if isinstance(values, (int, np.integer)):
+        values = [values]
         shape = ()
-        flat = [int(values) % spec.modulus]
+    else:
+        shape = np.shape(values)
+    arr = np.asarray(values)
+    if arr.dtype.kind in "iu" and arr.size and arr.min() >= 0:
+        # fixed-width non-negative ints (< 2^64 < m): two words each,
+        # without a Python loop
+        v = arr.astype(np.uint64).ravel()
+        words = np.zeros((v.size, NLIMBS), dtype=np.uint32)
+        words[:, 0] = v & np.uint64(M32)
+        words[:, 1] = v >> np.uint64(32)
     else:
         arr = np.asarray(values, dtype=object)
-        shape = arr.shape
-        flat = [int(v) % spec.modulus for v in arr.ravel()]
-    words = ints_to_words(flat).view(np.int32).reshape(tuple(shape) + (NLIMBS,))
+        words = ints_to_words([int(v) % spec.modulus for v in arr.ravel()])
+    words = words.view(np.int32).reshape(tuple(shape) + (NLIMBS,))
     out = torch.from_numpy(words.copy()).to(device)
     return to_mont(spec, out) if mont else out
 
@@ -453,25 +462,54 @@ def batch_inv(spec: FieldSpec, a):
     return select(zero, torch.zeros_like(a), invs[:n])
 
 
+def _reduce_wide(spec: FieldSpec, lo, hi, mul_fn, add_fn):
+    """(lo + hi * 2^256) mod m for lo, hi < 2^256 as int32 [..., 8]:
+    lo mod m = mont(lo, R mod m), hi * 2^256 mod m = mont(hi, R^2 mod m),
+    then one modular add (domain passes through)."""
+    a = mul_fn(spec, lo, constant(spec, spec.r_mod, lo.device))
+    b = mul_fn(spec, hi, constant(spec, spec.r2, lo.device))
+    return add_fn(spec, a, b)
+
+
+def _lazy_reduce_with(spec: FieldSpec, loose, mul_fn, add_fn):
+    limbs, top = _carry(loose, 32)
+    lo = _i32(limbs)
+    hi = torch.zeros_like(lo)
+    hi[..., 0] = _i32(top)
+    return _reduce_wide(spec, lo, hi, mul_fn, add_fn)
+
+
 def lazy_reduce(spec: FieldSpec, loose: torch.Tensor):
     """Loose int64 base-2^32 digit sums [..., 8] (value < 2^287) -> the
     canonical element with the same residue (domain passes through).
 
     value = lo + hi * 2^256 with lo < 2^256 and hi < 2^31 after one carry
-    pass; lo mod m = mont(lo, R mod m) and hi * 2^256 mod m =
-    mont(hi, R^2 mod m), then one modular add."""
-    limbs, top = _carry(loose, 32)
-    lo = _i32(limbs)
-    hi = torch.zeros_like(lo)
-    hi[..., 0] = _i32(top)
-    a = mul(spec, lo, constant(spec, spec.r_mod, loose.device))
-    b = mul(spec, hi, constant(spec, spec.r2, loose.device))
-    return add(spec, a, b)
+    pass, reduced by ``_reduce_wide``."""
+    return _lazy_reduce_with(spec, loose, mul, add)
 
 
 def modsum(spec: FieldSpec, arr: torch.Tensor, dim: int = 0):
     """Modular sum along ``dim`` (not the limb axis); < 2^31 terms."""
     return lazy_reduce(spec, as_u32(arr).sum(dim=dim))
+
+
+def modsum_plain(spec: FieldSpec, arr: torch.Tensor, dim: int = 0):
+    """``modsum`` through the plain versions only (no kernel launches), for
+    the plain versions of other kernels."""
+    return _lazy_reduce_with(spec, as_u32(arr).sum(dim=dim), mul_plain,
+                             add_plain)
+
+
+def random(spec: FieldSpec, gen: torch.Generator, shape=()):
+    """Uniform field elements [*shape, 8] on ``gen``'s device.
+
+    Draws 512 random bits x = lo + hi * 2^256 and returns x mod m (bias
+    about 2^-256). As a Montgomery value that is the form of another
+    uniform element, so it is uniform in either domain."""
+    words = torch.randint(0, 1 << 32, tuple(shape) + (2, NLIMBS),
+                          generator=gen, dtype=torch.int64,
+                          device=gen.device).to(torch.int32)
+    return _reduce_wide(spec, words[..., 0, :], words[..., 1, :], mul, add)
 
 
 def segment_modsum(spec: FieldSpec, values, segment_ids, num_segments: int):

@@ -52,6 +52,14 @@ def evaluate(spec: FieldSpec, table, point) -> torch.Tensor:
     return table[0]
 
 
+def linear_combination(spec: FieldSpec, coeffs, tables) -> torch.Tensor:
+    """sum_i coeffs[i] tables[i]: coeffs [k, 8], tables k of [n, 8]."""
+    acc = F.mul(spec, tables[0], coeffs[0])
+    for c, t in zip(coeffs[1:], tables[1:]):
+        acc = F.add(spec, acc, F.mul(spec, t, c))
+    return acc
+
+
 def eq_eval(spec: FieldSpec, r, s) -> torch.Tensor:
     """eq(r, s) = prod_k (r_k s_k + (1 - r_k)(1 - s_k)) for [nv, 8] points."""
     one = F.ones_mont(spec, (), r.device)

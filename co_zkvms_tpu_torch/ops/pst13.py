@@ -104,6 +104,14 @@ def open_at(srs: SRS, evals, point_mont) -> tuple:
     return value, OpeningProof(pis=tuple(pis))
 
 
+def commit_batch(srs: SRS, tables) -> list:
+    """Commit many MLE tables, their window sums through one
+    ``msm_batch_ints``; the same points as one ``commit`` each."""
+    jobs = [(srs.level(srs.nv - (t.shape[0].bit_length() - 1)), t)
+            for t in tables]
+    return [Commitment(xy=xy) for xy in M.msm_batch_ints(jobs)]
+
+
 def verify(srs: SRS, comm: Commitment, point_ints, value: int,
            proof: OpeningProof) -> bool:
     """Pairing product check (host). ``point_ints``: list of nv' ints."""
@@ -125,3 +133,38 @@ def verify(srs: SRS, comm: Commitment, point_ints, value: int,
             continue
         pairs.append((pi, h_exp))
     return bn.multi_pairing_is_one(pairs)
+
+
+# --- batched opening (eta-RLC aggregation) ---------------------------------
+
+
+def aggregate_evals_ints(eta: int, vals) -> int:
+    """sum_i eta^i vals[i] mod r (Horner from the last value)."""
+    acc = 0
+    for v in reversed(list(vals)):
+        acc = (acc * eta + v) % FR.modulus
+    return acc
+
+
+def aggregate_comms(eta: int, comms) -> Commitment:
+    """sum_i eta^i C_i on the host."""
+    acc = None
+    for i, cm in enumerate(comms):
+        acc = bn.add(acc, bn.scalar_mul(cm.point(), pow(eta, i, FR.modulus)))
+    return Commitment(xy=bn.g1_coords(acc))
+
+
+def batch_open(srs: SRS, tables, eta_mont, point_mont):
+    """Open sum_i eta^i table_i at one point with a single proof."""
+    etas = [F.ones_mont(FR, (), eta_mont.device)]
+    for _ in range(len(tables) - 1):
+        etas.append(F.mul(FR, etas[-1], eta_mont))
+    agg = P.linear_combination(FR, torch.stack(etas), tables)
+    return open_at(srs, agg, point_mont)
+
+
+def batch_verify(srs: SRS, comms, evals_ints, eta: int, point_ints,
+                 value: int, proof) -> bool:
+    if value != aggregate_evals_ints(eta, evals_ints):
+        return False
+    return verify(srs, aggregate_comms(eta, comms), point_ints, value, proof)

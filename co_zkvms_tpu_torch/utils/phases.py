@@ -1,11 +1,12 @@
 """Named phases of the prover, and their times from one profiled run.
 
-``models.spartan`` marks its phases with ``phase(name)``: a
-``torch.profiler.record_function`` range named ``spartan.<name>``, which
-costs next to nothing when no profiler is running. ``phase_table`` reads
-one ``torch.profiler.profile`` run of the real prover: for each range, its
-host time (the range on the host clock) and the device's busy time inside
-it, and for the whole run the device's idle share.
+``models.spartan`` and ``models.co_spartan`` mark their phases with
+``phase(name, model)``: a ``torch.profiler.record_function`` range named
+``<model>.<name>``, which costs next to nothing when no profiler is
+running. ``phase_table`` reads one ``torch.profiler.profile`` run of the
+real prover: for each range of one model, its host time (the range on the
+host clock) and the device's busy time inside it, and for the whole run
+the device's idle share.
 
 Device busy time is the union of the intervals of the device's own work
 (kernels, memcpy and memset), clipped to the range. Operator and annotation
@@ -20,14 +21,17 @@ from typing import NamedTuple
 import torch
 from torch.autograd import DeviceType
 
-PREFIX = "spartan."
+MODELS = ("spartan", "co_spartan")
+PREFIXES = tuple(m + "." for m in MODELS)
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 OVERHEAD = ("Activity Buffer Request",)
 
 
-def phase(name: str):
-    """A profiler range ``spartan.<name>`` around a phase of the prover."""
-    return torch.profiler.record_function(PREFIX + name)
+def phase(name: str, model: str = "spartan"):
+    """A profiler range ``<model>.<name>`` around a phase of a prover."""
+    if model not in MODELS:
+        raise ValueError(f"unknown model {model!r}")
+    return torch.profiler.record_function(f"{model}.{name}")
 
 
 class PhaseRow(NamedTuple):
@@ -66,7 +70,7 @@ def is_device_work(e) -> bool:
     # events that are neither annotations nor the profiler's own overhead
     return (e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith(PREFIX)
+            and not e.name.startswith(PREFIXES)
             and e.name not in OVERHEAD)
 
 
@@ -76,15 +80,16 @@ def device_intervals(events) -> list:
             if is_device_work(e)]
 
 
-def phase_table(events, outer: str = "prove"):
-    """Rows for every ``spartan.*`` host range, in order of start, and the
-    idle share of the ``spartan.<outer>`` ranges (None when the profile
+def phase_table(events, outer: str = "prove", model: str = "spartan"):
+    """Rows for every ``<model>.*`` host range, in order of start, and the
+    idle share of the ``<model>.<outer>`` ranges (None when the profile
     holds no device work: busy time not measured).
 
     ``events``: ``prof.events()`` of a ``torch.profiler.profile`` run."""
+    prefix = model + "."
     ranges = sorted(
         (e for e in events
-         if e.name.startswith(PREFIX) and e.device_type == DeviceType.CPU),
+         if e.name.startswith(prefix) and e.device_type == DeviceType.CPU),
         key=lambda e: e.time_range.start)
     work = device_intervals(events)
     rows = []
@@ -92,7 +97,7 @@ def phase_table(events, outer: str = "prove"):
     for e in ranges:
         start, end = e.time_range.start, e.time_range.end
         busy = union_length(_clipped(work, start, end))
-        name = e.name[len(PREFIX):]
+        name = e.name[len(prefix):]
         rows.append(PhaseRow(name, (end - start) / 1e6, busy / 1e6))
         if name == outer:
             outer_wall += end - start

@@ -4,10 +4,12 @@ the CPU, and its wrappers never mix devices. Tests that need the card carry
 the ``cuda`` marker and decide to skip inside the test."""
 
 import os
+import random
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 
@@ -59,7 +61,9 @@ def test_sources_import_no_jax_and_no_jax_package():
 
 def test_importing_the_package_loads_no_jax():
     mods = ["co_zkvms_tpu_torch.models.spartan", "co_zkvms_tpu_torch.ops.msm",
-            "co_zkvms_tpu_torch.utils.convert", "co_zkvms_tpu_torch.ops.pst13"]
+            "co_zkvms_tpu_torch.utils.convert", "co_zkvms_tpu_torch.ops.pst13",
+            "co_zkvms_tpu_torch.models.co_spartan",
+            "co_zkvms_tpu_torch.parallel.mpc"]
     prog = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -83,6 +87,59 @@ def test_entry_points_raise_without_a_card():
         F.from_int(F.FR, [1, 2])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         C.points_from_ints([(1, 2)])
+    # the functions that carry the JAX package's state in, and the new
+    # modules' entry points
+    from co_zkvms_tpu_torch.ops import zk
+    from co_zkvms_tpu_torch.parallel.rng import CorrelatedRng
+    from co_zkvms_tpu_torch.utils import convert
+
+    limbs = np.zeros((2, 16), np.uint32)
+    raw = {"nv": 0, "levels": [(limbs[:1], limbs[:1])], "h_taus": []}
+    for call in (lambda: convert.fe_from_limbs16(limbs),
+                 lambda: convert.point_from_limbs16((limbs, limbs)),
+                 lambda: convert.srs_from_raw(raw),
+                 lambda: zk.generate_mask(random.Random(1), 2, 2),
+                 lambda: CorrelatedRng((1, 2, 3)).zero_shares(F.FR, (2,), 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_device_parameters_default_to_cuda():
+    """Every public function or method of the port that takes a device
+    runs on the card unless the caller asks for the CPU: no ``device``
+    parameter defaults to the CPU."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import co_zkvms_tpu_torch
+
+    found = []
+    for info in pkgutil.walk_packages(co_zkvms_tpu_torch.__path__,
+                                      "co_zkvms_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != \
+                    info.name:
+                continue
+            fns = [obj] if inspect.isfunction(obj) else [
+                f for k, f in vars(obj).items()
+                if not k.startswith("_") and callable(f)] \
+                if inspect.isclass(obj) else []
+            for fn in fns:
+                fn = getattr(fn, "__func__", fn)
+                try:
+                    params = inspect.signature(fn).parameters
+                except (TypeError, ValueError):
+                    continue
+                if "device" in params:
+                    found.append(f"{info.name}.{name}")
+                    # "cuda", or a device the caller must name
+                    assert params["device"].default in (
+                        "cuda", inspect.Parameter.empty), \
+                        f"{info.name}.{name}: device={params['device'].default}"
+    assert "co_zkvms_tpu_torch.utils.convert.fe_from_limbs16" in found
+    assert "co_zkvms_tpu_torch.ops.zk.generate_mask" in found
 
 
 def test_wrappers_reject_mixed_or_foreign_devices():
@@ -100,14 +157,16 @@ def test_every_kernel_names_its_source_and_tpu_kernel():
     names = set(build.KERNELS)
     assert names == {"fp_mul", "fp_square", "fp_add", "fp_sub",
                      "g1_add_mixed", "g1_add", "g1_double",
-                     "g1_add_incomplete", "msm_bucket_accumulate"}
+                     "g1_add_incomplete", "msm_bucket_accumulate",
+                     "sc_eval_round_outer", "sc_eval_round_inner",
+                     "sc_reduce_partials", "sc_bind_round"}
     for k in build.KERNELS.values():
         assert k.source in build.SOURCES
         assert os.path.exists(os.path.join(build.CSRC, f"{k.source}.cu"))
         path, line = k.replaces.split(":")
         with open(os.path.join(ROOT, path)) as fh:
             text = fh.read().splitlines()[int(line) - 1]
-        assert text.startswith("def "), (k.name, text)
+        assert text.lstrip().startswith("def "), (k.name, text)
 
 
 def test_ptxas_summary_parses_registers_and_spills():
@@ -148,3 +207,17 @@ def test_kernels_match_plain_versions_on_card():
     got = M.bucket_accumulate(pts, order, starts)
     want = M.bucket_accumulate_plain(pts, order, starts)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+    # the sumcheck round kernels (B9-B11)
+    from co_zkvms_tpu_torch.ops import sumcheck as SC
+
+    tabs = a.reshape(4, n // 4, 8).contiguous()
+    for comb, stack, suffix in ((SC.OUTER, tabs[:3], b[: n // 8]),
+                                (SC.INNER, tabs[:2], None)):
+        suffix = None if suffix is None else suffix.contiguous()
+        part = SC.eval_partials(F.FR, comb, stack, suffix)
+        assert torch.equal(part, SC.eval_partials_plain(F.FR, comb, stack,
+                                                        suffix))
+        assert torch.equal(SC.reduce_partials(F.FR, part),
+                           SC.reduce_partials_plain(F.FR, part))
+    assert torch.equal(SC.bind_rows(F.FR, tabs, b[0]),
+                       SC.bind_rows_plain(F.FR, tabs, b[0]))

@@ -54,13 +54,13 @@ def test_setup_equals_tracked_srs(nv, seed):
     for lvl, (x, y) in zip(got.ck_levels, raw["levels"]):
         np.testing.assert_array_equal(convert.fe_to_limbs16(lvl.x), x)
         np.testing.assert_array_equal(convert.fe_to_limbs16(lvl.y), y)
-    want = convert.srs_from_raw(raw)
+    want = convert.srs_from_raw(raw, device="cpu")
     assert got.h_taus == want.h_taus
 
 
 def test_commit_open_verify_both_packages():
     rng = np.random.default_rng(41)
-    srs = convert.srs_from_raw(_raw(4, 1))
+    srs = convert.srs_from_raw(_raw(4, 1), device="cpu")
     jsrs = JP.setup_cached(4, seed=1)
     for nv in (4, 2):
         vals = [int(v) for v in rng.integers(0, 1 << 62, size=1 << nv)]

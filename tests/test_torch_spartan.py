@@ -62,7 +62,7 @@ def cubic_circuit(builder):
 
 def _port_srs(nv, seed):
     with open(os.path.join(SRS_DIR, f"srs_{nv}_{seed}.pkl"), "rb") as fh:
-        return convert.srs_from_raw(pickle.load(fh))
+        return convert.srs_from_raw(pickle.load(fh), device="cpu")
 
 
 def _jax_index(r1cs):
