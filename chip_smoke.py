@@ -38,6 +38,20 @@ before its last line:
               the device's busy time inside it, and the device's idle share
               of the prove. The proof must equal the slice's. Then the same
               for slice 2's prove_rep3 by its co_spartan.<phase> ranges.
+  7. slice4   the primitives off the prover path, at the JAX package's
+              bench.py shapes (nv = 20): hash2 over 2^18 pairs (B12), a
+              Merkle root over 2^20 leaves by merkle_layer, the Poseidon
+              transcript, t = 4 and 5 permutations of 2^16 states, the NTT
+              and its inverse at 2^20, Shamir sharing of 2^20 secrets
+              (t = 2, n = 5) and of 2^10 points (t = 1, n = 3), Rep3 point
+              shares and per-party MSMs; every launch count of that run
+              must be > 0 for B12, B1, B3, B5, B6 and B8. Then the checks:
+              B12 against its plain version on 2^16 states and against the
+              t = 3 composition over the field kernels on the 2^18 hash
+              states (bit for bit), hash and Merkle nodes against host_hash,
+              the transcript against its host mirror, t = 4/5 against
+              host_permute, intt(ntt(x)) == x, a 2^10 NTT against a host
+              DFT, and every reconstruction against its secret.
 
 Then it prints one JSON line of kernel records, nvidia-smi's name and power
 limit, and, last, {"ok": true, "device": {...}}.
@@ -123,6 +137,7 @@ def main() -> int:
     rep3 = slice2_phase(torch, dev, args, r1cs, z, index, records)
     profile_phase(torch, dev, r1cs, srs, z, proof)
     profile_rep3_phase(torch, dev, index, z, args.seed, *rep3)
+    slice4_phase(torch, dev, args, records)
 
     print(json.dumps({"kernels": records}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -624,6 +639,236 @@ def profile_rep3_phase(torch, dev, index, z, seed, srs, dfs, params,
     if proof != want:
         raise AssertionError("profiled prove_rep3 != the slice-2 proof")
     report_profile(prof.events(), "co_spartan", "profile2")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Poseidon (B12), the NTT, Shamir and Rep3 point shares
+# ---------------------------------------------------------------------------
+
+# B12 per state: 666 Montgomery products and 162 squares (x^5 is square,
+# square, multiply; 65 rounds of a 3 x 3 MDS product)
+POSEIDON_T3_OPS = 666 * MUL_OPS + 162 * SQR_OPS
+
+
+def timed(torch, fn):
+    """(fn(), ms) of one run, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def slice4_phase(torch, dev, args, records) -> None:
+    from co_zkvms_tpu_torch.ops import curve as C
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import msm as M
+    from co_zkvms_tpu_torch.ops import ntt as N
+    from co_zkvms_tpu_torch.ops import poseidon as P
+    from co_zkvms_tpu_torch.ops import ref_bn254 as bn
+    from co_zkvms_tpu_torch.parallel import pointshares as PS
+    from co_zkvms_tpu_torch.parallel import shamir as Sh
+    from co_zkvms_tpu_torch.parallel import shares as S
+    from co_zkvms_tpu_torch.utils import build
+
+    FR = F.FR
+    nv = args.nv
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(args.seed + 4)
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    n_hash, n_leaves, n_small = 1 << (nv - 2), 1 << nv, 1 << (nv - 4)
+    n_pts = 1 << (nv - 10)
+
+    def fe(count):
+        return F.to_mont(FR, random_fe(torch, gen, count, dev))
+
+    # inputs, made before the counts are zeroed
+    a, b, leaves = fe(n_hash), fe(n_hash), fe(n_leaves)
+    wide = {t: fe(n_small * t).reshape(n_small, t, 8) for t in (4, 5)}
+    poly, poly10, secrets, coeffs = fe(n_leaves), fe(1 << 10), \
+        fe(n_leaves), fe(n_pts)
+    g = C.points_from_ints([bn.g1_coords(bn.G1_GEN)], device=dev)
+    g1 = C.APoint(g.x[0], g.y[0])
+    pts = M.fixed_base_msm(g1, fe(n_pts))
+    bases = C.to_affine(M.fixed_base_msm(g1, fe(n_pts)))
+    absorbed = [3, 1 << 200, FR.modulus - 1]
+    fes = [F.from_int(FR, v, device=dev) for v in absorbed]
+    small = [F.from_int(FR, v, device=dev) for v in
+             ([1, 2, 0, 0, 0, 0, 0, 0], [3, 4, 0, 0, 0, 0, 0, 0])]
+    torch.cuda.synchronize()
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    wall = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    def merkle():
+        levels = [leaves]
+        while levels[-1].shape[0] > 1:
+            levels.append(P.merkle_layer(levels[-1]))
+        return levels
+
+    def transcript():
+        st = P.transcript_init(b"chip_smoke", device=dev)
+        out = []
+        for x in fes:
+            st = P.transcript_absorb(st, x)
+            st, ch = P.transcript_challenge(st)
+            out.append(ch)
+        return torch.stack(out)
+
+    hashes = run("hash2", lambda: P.hash2(a, b))
+    levels = run("merkle", merkle)
+    challenges = run("transcript", transcript)
+    permuted = {t: run(f"t{t}", lambda t=t: P.permute(wide[t]))
+                for t in (4, 5)}
+    back = run("ntt", lambda: N.intt(FR, N.ntt(FR, poly)))
+    dft10 = N.ntt(FR, poly10)
+    prod = N.mul_polys(FR, *small)
+    shares = run("shamir_share", lambda: Sh.share(FR, dgen, secrets, 2, 5))
+    subsets = ([1, 2, 3], [2, 4, 5], [1, 3, 5])
+    recs = run("shamir_reconstruct", lambda: [Sh.reconstruct(
+        FR, shares[[i - 1 for i in ids]], ids) for ids in subsets])
+    pshares = run("point_share", lambda: Sh.share_point(gen, pts, 1, 3))
+    prec = run("point_reconstruct", lambda: [Sh.reconstruct_point(
+        C.index(pshares, [i - 1 for i in ids]), ids)
+        for ids in ([1, 2], [2, 3], [1, 3])])
+    rep3 = run("rep3_points", lambda: PS.combine(PS.share(gen, pts)))
+    msm3 = run("msm_shares", lambda: PS.combine(PS.msm_shares(
+        bases, S.share(FR, dgen, coeffs))))
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+    t_path = time.perf_counter() - t_phase
+    need = ("poseidon_permute_t3", "fp_mul", "fp_add", "fp_sub", "g1_add",
+            "g1_double", "msm_bucket_accumulate")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in slice 4: {missing}")
+    for rec in records:
+        rec["launches_slice4"] = launches[rec["name"]]
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"slice4: {what}")
+
+    # B12 against its plain version, and against the t = 3 composition
+    # over the field kernels on the 2^18 hash states
+    s16 = torch.stack([a[:n_small], b[:n_small], leaves[:n_small]], dim=1)
+    got16 = P.permute(s16)
+    want16, plain_ms = timed(torch, lambda: P.permute_plain(s16))
+    check(torch.equal(got16, want16),
+          f"B12 != permute_plain on 2^{nv - 4} states")
+    cap = F.from_int(FR, 2, device=dev).expand(n_hash, 1, 8)
+    state = torch.cat([cap, torch.stack([a, b], dim=1)], dim=1)
+    full = P.permute(state)
+    check(torch.equal(full[:, 1], hashes), "hash2 != permute(state)[1]")
+    composed, composed_ms = timed(torch, lambda: P.permute_composed(state))
+    check(torch.equal(full, composed), "B12 != the B1-B3 composition")
+    ms = cuda_ms(torch, lambda: P.permute(state), 10)
+    hash_ms = cuda_ms(torch, lambda: P.hash2(a, b), 10)
+    idx = torch.randint(0, n_hash, (64,), generator=gen).tolist()
+    ia, ib, ih = (F.to_int(FR, x[idx]).tolist() for x in (a, b, hashes))
+    check(all(P.host_hash([x, y]) == h for x, y, h in zip(ia, ib, ih)),
+          "hash2 != host_hash on 64 samples")
+    rec = record(P.POSEIDON_T3, "co_zkvms_tpu_torch/ops/csrc/poseidon.cu",
+                 ms, plain_ms, 2 * 3 * ELEM * n_hash + (195 + 9) * ELEM,
+                 POSEIDON_T3_OPS * n_hash,
+                 note=f"plain_ms on 2^{nv - 4} states; ms on 2^{nv - 2}")
+    rec["launches"] = rec["launches_slice4"] = launches[P.POSEIDON_T3.name]
+    rec["launches_of"] = "slice4"
+    records.append(rec)
+
+    # Merkle: every node of the top 10 levels, 8 of each lower level
+    n_checked = 0
+    for lvl in range(1, len(levels)):
+        size = levels[lvl].shape[0]
+        rows = list(range(size)) if size <= 512 else torch.randint(
+            0, size, (8,), generator=gen).tolist()
+        kids = F.to_int(FR, levels[lvl - 1][[2 * r + j for r in rows
+                                              for j in (0, 1)]]).tolist()
+        nodes = F.to_int(FR, levels[lvl][rows]).tolist()
+        for r, node in enumerate(nodes):
+            check(P.host_hash(kids[2 * r: 2 * r + 2]) == node,
+                  f"Merkle level {lvl} node {rows[r]}")
+        n_checked += len(rows)
+    check(levels[-1].shape[0] == 1 and len(levels) == nv + 1,
+          "Merkle levels")
+
+    host = P.HostPoseidonTranscript(b"chip_smoke")
+    want = []
+    for v in absorbed:
+        host.absorb(v)
+        want.append(host.challenge())
+    check(F.to_int(FR, challenges).tolist() == want,
+          "transcript != HostPoseidonTranscript")
+    for t, out in permuted.items():
+        rows = torch.randint(0, n_small, (8,), generator=gen).tolist()
+        ins = F.to_int(FR, wide[t][rows]).tolist()
+        outs = F.to_int(FR, out[rows]).tolist()
+        check(all(P.host_permute(x) == y for x, y in zip(ins, outs)),
+              f"t = {t} != host_permute")
+    check(torch.equal(back, poly), f"intt(ntt(x)) != x at 2^{nv}")
+    vals = F.to_int(FR, poly10).tolist()
+    w = N.two_adic_root(FR, 10)
+    pw = [pow(w, k, FR.modulus) for k in range(1 << 10)]
+    dft = [sum(v * pw[(i * k) & 1023] for i, v in enumerate(vals))
+           % FR.modulus for k in range(1 << 10)]
+    check(F.to_int(FR, dft10).tolist() == dft, "NTT 2^10 != host DFT")
+    check(F.to_int(FR, prod).tolist() == [3, 10, 8, 0, 0, 0, 0, 0],
+          "mul_polys")
+    ntt_ms = cuda_ms(torch, lambda: N.ntt(FR, poly), 3)
+    check(all(torch.equal(r, secrets) for r in recs), "Shamir reconstruct")
+    want_pts = C.to_affine(pts)
+
+    def same_points(p):
+        q = C.to_affine(p)
+        return torch.equal(q.x, want_pts.x) and torch.equal(q.y, want_pts.y)
+
+    check(all(same_points(p) for p in prec), "Shamir point reconstruct")
+    check(same_points(rep3), "Rep3 point shares do not combine to the point")
+    check(C.points_to_ints(C.to_affine(msm3)) == C.points_to_ints(
+        C.to_affine(M.msm(bases, coeffs))),
+          "combine(msm_shares) != msm of the opened coefficients")
+
+    log(f"[slice4] B12 poseidon_permute_t3 bit-exact against permute_plain "
+        f"on 2^{nv - 4} states and against the t = 3 composition over "
+        f"B1-B3 on 2^{nv - 2} states ({composed_ms:.1f} ms); 64 hash2 "
+        f"samples == host_hash")
+    log(f"[slice4] hash2 over 2^{nv - 2} pairs: {hash_ms:.3f} ms, "
+        f"{n_hash / (hash_ms / 1e3):,.0f} hashes/s; B12 {ms:.3f} ms a launch "
+        f"(plain {plain_ms:.1f} ms on 2^{nv - 4}), bound "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+        f"{100 * rec['bound_ms'] / ms:.1f} % of it")
+    log(f"[slice4] Merkle root over 2^{nv} leaves: {len(levels) - 1} "
+        f"merkle_layer calls, {n_leaves - 1} hashes in "
+        f"{wall['merkle']:.3f} s; {n_checked} nodes == host_hash")
+    log(f"[slice4] transcript: {len(absorbed)} absorbs and challenges == "
+        f"HostPoseidonTranscript ({wall['transcript']:.3f} s)")
+    log(f"[slice4] t = 4, 5 on 2^{nv - 4} states: {wall['t4']:.3f} s, "
+        f"{wall['t5']:.3f} s; 8 samples each == host_permute")
+    log(f"[slice4] NTT 2^{nv}: ntt {ntt_ms:.2f} ms "
+        f"({n_leaves / (ntt_ms / 1e3):,.0f} elements/s); ntt + intt "
+        f"{wall['ntt']:.3f} s, intt(ntt(x)) == x; 2^10 == host DFT; "
+        f"mul_polys (1 + 2t)(3 + 4t) ok")
+    log(f"[slice4] Shamir 2^{nv} secrets (t = 2, n = 5): share "
+        f"{wall['shamir_share']:.3f} s, reconstruct from 3 subsets "
+        f"{wall['shamir_reconstruct']:.3f} s, all == secrets; "
+        f"2^{nv - 10} points (t = 1, n = 3): share "
+        f"{wall['point_share']:.3f} s, reconstruct from 3 subsets "
+        f"{wall['point_reconstruct']:.3f} s, == points")
+    log(f"[slice4] Rep3 point shares of 2^{nv - 10} points combine to them "
+        f"({wall['rep3_points']:.3f} s); combine(msm_shares) == msm "
+        f"({wall['msm_shares']:.3f} s)")
+    log(f"[slice4] launches {json.dumps(launches)}")
+    log(f"[slice4] path {t_path:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def report_profile(events, model: str, tag: str) -> None:

@@ -506,9 +506,20 @@ def random(spec: FieldSpec, gen: torch.Generator, shape=()):
     Draws 512 random bits x = lo + hi * 2^256 and returns x mod m (bias
     about 2^-256). As a Montgomery value that is the form of another
     uniform element, so it is uniform in either domain."""
-    words = torch.randint(0, 1 << 32, tuple(shape) + (2, NLIMBS),
-                          generator=gen, dtype=torch.int64,
-                          device=gen.device).to(torch.int32)
+    return from_random_words(spec, random_words(gen, shape))
+
+
+def random_words(gen: torch.Generator, shape=()) -> torch.Tensor:
+    """512 random bits per element, int32 [*shape, 2, 8], on ``gen``'s
+    device."""
+    return torch.randint(0, 1 << 32, tuple(shape) + (2, NLIMBS),
+                         generator=gen, dtype=torch.int64,
+                         device=gen.device).to(torch.int32)
+
+
+def from_random_words(spec: FieldSpec, words: torch.Tensor):
+    """[..., 2, 8] words x = lo + hi * 2^256 -> x mod m [..., 8], on the
+    words' device."""
     return _reduce_wide(spec, words[..., 0, :], words[..., 1, :], mul, add)
 
 

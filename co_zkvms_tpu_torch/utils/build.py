@@ -25,7 +25,7 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(PKG, "build")
-SOURCES = ("field_kernels", "g1", "msm_bucket", "sumcheck_round")
+SOURCES = ("field_kernels", "g1", "msm_bucket", "sumcheck_round", "poseidon")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 

@@ -1,10 +1,11 @@
 """The CUDA kernels' own arithmetic, compiled as host C++.
 
-ops/csrc/field.cuh and g1.cuh compile with a host compiler too (FDEV ->
-inline). This test builds a small harness over them with g++ and holds the
-kernels' Montgomery products, modular add/sub and G1 formulas to the port's
-plain PyTorch versions bit for bit, edge rows included. No nvcc is needed;
-without g++ the test skips.
+ops/csrc/field.cuh, g1.cuh and poseidon.cuh compile with a host compiler
+too (FDEV -> inline). This test builds a small harness over them with g++
+and holds the kernels' Montgomery products, modular add/sub and G1
+formulas to the port's plain PyTorch versions bit for bit, edge rows
+included, and B12's t = 3 Poseidon permutation to the host mirror
+``host_permute``. No nvcc is needed; without g++ the test skips.
 """
 
 import ctypes
@@ -17,17 +18,18 @@ import pytest
 from co_zkvms_tpu.ops import ref_bn254 as bn
 
 
-torch = C = F = build = None  # bound by _port()
+torch = C = F = P = build = None  # bound by _port()
 
 
 def _port():
     """Import torch and the port when the first test of this module runs,
     not at collection: an xdist worker that runs none of these tests
     never loads them."""
-    global torch, C, F, build
+    global torch, C, F, P, build
     import torch
     from co_zkvms_tpu_torch.ops import curve as C
     from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import poseidon as P
     from co_zkvms_tpu_torch.utils import build
 
 
@@ -38,6 +40,7 @@ def _port_loaded():
 
 HARNESS = r"""
 #include "g1.cuh"
+#include "poseidon.cuh"
 using namespace bn254;
 typedef uint32_t u32;
 extern "C" {
@@ -84,6 +87,15 @@ void h_g1(int op, const u32* const* p, const u32* const* q, u32* const* o,
     else { ld(b, q, i); if (op == 1) jac_add(r, a, b);
            else jac_add_incomplete(r, a, b); }
     st(o, i, r);
+  }
+}
+// B12's permutation on n states [n][3][8] in place
+void h_poseidon(u32* s, const u32* rc, const u32* mds, int n) {
+  for (int i = 0; i < n; i++) {
+    u32 st[3][8];
+    for (int k = 0; k < 3; k++) fe_copy(st[k], s + 24 * i + 8 * k);
+    poseidon_t3_permute(st, rc, mds);
+    for (int k = 0; k < 3; k++) fe_copy(s + 24 * i + 8 * k, st[k]);
   }
 }
 }
@@ -170,3 +182,18 @@ def test_g1_formulas_match_plain(lib):
         lib.h_g1(op, _ptrs(pj), _ptrs(qc + qc[:3 - len(qc)]), _ptrs(out),
                  len(ps))
         assert all(torch.equal(o, w) for o, w in zip(out, want)), op
+
+
+def test_poseidon_permutation_matches_host_mirror(lib):
+    """B12's round function (poseidon.cuh) on a few t = 3 states, edge
+    values included, against the host mirror on Python ints."""
+    rng = np.random.default_rng(53)
+    r = F.FR.modulus
+    states = [[0, 0, 0], [1, 2, 3], [r - 1, r - 1, r - 1]] + [
+        [int.from_bytes(rng.bytes(32), "little") % r for _ in range(3)]
+        for _ in range(3)]
+    s = F.from_int(F.FR, states, device="cpu").contiguous()
+    rc, mds = P._params_dev(3, torch.device("cpu"))
+    lib.h_poseidon(_ptr(s), _ptr(rc), _ptr(mds), len(states))
+    got = F.to_int(F.FR, s).tolist()
+    assert got == [P.host_permute(st) for st in states]

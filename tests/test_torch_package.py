@@ -63,7 +63,10 @@ def test_importing_the_package_loads_no_jax():
     mods = ["co_zkvms_tpu_torch.models.spartan", "co_zkvms_tpu_torch.ops.msm",
             "co_zkvms_tpu_torch.utils.convert", "co_zkvms_tpu_torch.ops.pst13",
             "co_zkvms_tpu_torch.models.co_spartan",
-            "co_zkvms_tpu_torch.parallel.mpc"]
+            "co_zkvms_tpu_torch.parallel.mpc",
+            "co_zkvms_tpu_torch.ops.poseidon", "co_zkvms_tpu_torch.ops.ntt",
+            "co_zkvms_tpu_torch.parallel.shamir",
+            "co_zkvms_tpu_torch.parallel.pointshares"]
     prog = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -100,6 +103,26 @@ def test_entry_points_raise_without_a_card():
                  lambda: convert.srs_from_raw(raw),
                  lambda: zk.generate_mask(random.Random(1), 2, 2),
                  lambda: CorrelatedRng((1, 2, 3)).zero_shares(F.FR, (2,), 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # slice 4 (Poseidon, NTT, Shamir, point shares, seeded shares). The
+    # functions that take tensors run on their inputs' device; a caller
+    # starting from host values gets a card's tensors by default, so the
+    # call raises before any work runs on the CPU.
+    from co_zkvms_tpu_torch.ops import ntt
+    from co_zkvms_tpu_torch.ops import poseidon
+    from co_zkvms_tpu_torch.parallel import pointshares, shamir, shares
+
+    gen = torch.Generator().manual_seed(1)
+    for call in (lambda: poseidon.transcript_init(b"label"),
+                 lambda: shamir.precompute_lagrange([1, 2]),
+                 lambda: poseidon.permute(F.from_int(F.FR, [[1, 2, 3]])),
+                 lambda: ntt.ntt(F.FR, F.from_int(F.FR, [1, 2])),
+                 lambda: shamir.share(F.FR, gen, F.from_int(F.FR, [5]), 1, 3),
+                 lambda: pointshares.share(gen, C.from_affine(
+                     C.points_from_ints([(1, 2)]))),
+                 lambda: shares.expand_seeded(F.FR, (1, 2), F.zeros((2,)),
+                                              (2,))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -154,19 +177,30 @@ def test_wrappers_reject_mixed_or_foreign_devices():
 
 
 def test_every_kernel_names_its_source_and_tpu_kernel():
+    from co_zkvms_tpu_torch.ops import poseidon
+
     names = set(build.KERNELS)
     assert names == {"fp_mul", "fp_square", "fp_add", "fp_sub",
                      "g1_add_mixed", "g1_add", "g1_double",
                      "g1_add_incomplete", "msm_bucket_accumulate",
                      "sc_eval_round_outer", "sc_eval_round_inner",
-                     "sc_reduce_partials", "sc_bind_round"}
+                     "sc_reduce_partials", "sc_bind_round",
+                     "poseidon_permute_t3"}
+    b12 = build.KERNELS["poseidon_permute_t3"]
+    assert b12 is poseidon.POSEIDON_T3 and b12.source == "poseidon"
+    assert b12.replaces == \
+        "co_zkvms_tpu/ops/poseidon.py:224 _permute_pallas_t3"
     for k in build.KERNELS.values():
         assert k.source in build.SOURCES
         assert os.path.exists(os.path.join(build.CSRC, f"{k.source}.cu"))
-        path, line = k.replaces.split(":")
+        # "file:line", optionally followed by the function's name
+        path, rest = k.replaces.split(":")
+        line, *fn = rest.split()
         with open(os.path.join(ROOT, path)) as fh:
             text = fh.read().splitlines()[int(line) - 1]
         assert text.lstrip().startswith("def "), (k.name, text)
+        if fn:
+            assert text.lstrip().startswith(f"def {fn[0]}("), (k.name, text)
 
 
 def test_ptxas_summary_parses_registers_and_spills():
@@ -221,3 +255,16 @@ def test_kernels_match_plain_versions_on_card():
                            SC.reduce_partials_plain(F.FR, part))
     assert torch.equal(SC.bind_rows(F.FR, tabs, b[0]),
                        SC.bind_rows_plain(F.FR, tabs, b[0]))
+    # B12, on a batch that is not a multiple of the block size
+    from co_zkvms_tpu_torch.ops import poseidon as P
+
+    states = a[: 3 * 301].reshape(301, 3, 8)
+    assert torch.equal(P.permute(states), P.permute_plain(states))
+    assert torch.equal(P.permute(states[:1]), P.permute_plain(states[:1]))
+    # seeded shares expand to the same rows on the card as on the CPU
+    from co_zkvms_tpu_torch.parallel import shares
+
+    seeds, explicit = shares.share_seeded(F.FR, gen, a[:16])
+    on_card = shares.expand_seeded(F.FR, seeds, explicit, (16,))
+    on_cpu = shares.expand_seeded(F.FR, seeds, explicit.cpu(), (16,))
+    assert torch.equal(on_card.cpu(), on_cpu)
