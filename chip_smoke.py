@@ -12,9 +12,13 @@ before its last line:
               inputs at the main path's shapes, bit-exact (the results are
               field elements and points: there is no tolerance); the time
               per launch from CUDA events beside its bound and the plain
-              version's time. The sumcheck round kernels (B9 for each comb
-              instance, B11, B10 on tables and on a [3, n, 8] share stack)
-              run at the first round's shapes of the slice's sumchecks.
+              version's time. B5 and B7 also at the main path's small
+              sizes: bit-exact at 4,096 points, timed at 4,096 and 2,432
+              points with blocks of 32, 64 and 128 threads; B4-B8 report
+              their ptxas registers and spill stores. The sumcheck round
+              kernels (B9 for each comb instance, B11, B10 on tables and on
+              a [3, n, 8] share stack) run at the first round's shapes of
+              the slice's sumchecks.
   4. slice    the main path through the entry points a user calls:
               pst13.setup(nv, 7) and spartan.prove of
               squaring_chain(2^nv - 4) with x = 3 (nv = 20 by default, as the
@@ -31,13 +35,20 @@ before its last line:
               co_spartan.prove_rep3(dfs=, zk_ctx=) with the same zk rng
               seed must give equal proofs, field by field; the host verifier
               accepts and rejects va + 1 and a changed DFS eval; every
-              kernel's launch count in this phase is > 0.
+              kernel's launch count in this phase is > 0, and so is the
+              count of MSMs down the by-value path (the index's 0/1 and
+              count tables). Then a separate commit of val_a (it must take
+              the by-value path) is timed, and a 2^dlog-entry 0/1 table
+              committed through the by-value path must give the point of
+              the B8 window path called directly on it.
   6. profile  slice 1's prove again, with the index rebuilt, under
               torch.profiler: each of the prover's named phases
               (models/spartan.py, utils/phases.py) with its host time and
               the device's busy time inside it, and the device's idle share
               of the prove. The proof must equal the slice's. Then the same
-              for slice 2's prove_rep3 by its co_spartan.<phase> ranges.
+              for slice 2's prove_rep3 by its co_spartan.<phase> ranges,
+              and slice 2's DFS build_index (wall, device busy time, its
+              kernels by device time; the same commitments).
   7. slice4   the primitives off the prover path, at the JAX package's
               bench.py shapes (nv = 20): hash2 over 2^18 pairs (B12), a
               Merkle root over 2^20 leaves by merkle_layer, the Poseidon
@@ -132,11 +143,12 @@ def main() -> int:
     for line in regs:
         log(f"[build]   {line}")
 
-    records = kernel_phase(torch, dev, args.nv)
+    records = kernel_phase(torch, dev, args.nv, regs)
     r1cs, srs, z, proof, index = slice_phase(torch, dev, args, records)
     rep3 = slice2_phase(torch, dev, args, r1cs, z, index, records)
     profile_phase(torch, dev, r1cs, srs, z, proof)
     profile_rep3_phase(torch, dev, index, z, args.seed, *rep3)
+    profile_index_phase(torch, r1cs, *rep3[:2])
     slice4_phase(torch, dev, args, records)
 
     print(json.dumps({"kernels": records}), flush=True)
@@ -166,6 +178,31 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(torch, fn, reps: int, entry: str) -> float:
+    """Mean device time of the kernel ``entry`` over ``reps`` calls of fn,
+    from torch.profiler's device events: unlike CUDA events around the
+    calls, it leaves out the wrapper's host time, which a small launch
+    does not cover."""
+    from co_zkvms_tpu_torch.utils import phases
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if phases.is_device_work(e) and f"::{entry}(" in e.name]
+    # the profiler may drop an event of a burst of short launches (seen:
+    # 49 of 50); the mean of those it kept stands for the launch
+    if len(us) < max(1, reps // 2):
+        raise AssertionError(f"{entry}: {len(us)} device events for {reps} "
+                             "calls")
+    return sum(us) / len(us) / 1e3
+
+
 def same(torch, a, b) -> bool:
     if isinstance(a, tuple):
         return all(same(torch, x, y) for x, y in zip(a, b))
@@ -192,7 +229,7 @@ def random_fe(torch, gen, n, dev):
     return w.to(torch.int32).to(dev)
 
 
-def kernel_phase(torch, dev, nv: int) -> list:
+def kernel_phase(torch, dev, nv: int, regs: list) -> list:
     from co_zkvms_tpu_torch.ops import curve as C
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import msm as M
@@ -280,12 +317,19 @@ def kernel_phase(torch, dev, nv: int) -> list:
         torch.cuda.synchronize()
         if not same(torch, tuple(got), tuple(want)):
             raise AssertionError(f"{kfn.name}: kernel != plain")
-        ms = cuda_ms(torch, lambda: fn(*args), 20)
+        ms = kernel_ms(torch, lambda: fn(*args), 20, ENTRIES[kfn.name])
+        ms_events = cuda_ms(torch, lambda: fn(*args), 20)
         pms = cuda_ms(torch, lambda: plain(*args), 1)
         records.append(record(kfn, gsrc, ms, pms, per_pt * npt, ops))
+        records[-1].update(registers_of(regs, kfn.name),
+                           ms_events=ms_events)
         log(f"[kernels] {kfn.name} 2^{nv - 4} points (p=q, p=-q, inf rows) "
-            f"bit-exact; {ms:.4f} ms (plain {pms:.2f} ms), bound "
-            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
+            f"bit-exact; device {ms:.4f} ms a launch (CUDA events around "
+            f"the calls {ms_events:.4f} ms; plain {pms:.2f} ms), bound "
+            f"{records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']}); "
+            f"{records[-1]['registers']} registers, "
+            f"{records[-1]['spill_stores']} bytes spill stores")
+    small_g1_launches(torch, C, p, q, records, jadd, pre_j, dbl)
 
     # B8 on a 2^nv-point window set at the path's window bits
     c = M.auto_c(n)
@@ -300,7 +344,8 @@ def kernel_phase(torch, dev, nv: int) -> list:
     torch.cuda.synchronize()
     if not same(torch, tuple(c_[ws] for c_ in got), tuple(want)):
         raise AssertionError("msm_bucket_accumulate: kernel != plain")
-    ms = cuda_ms(torch, lambda: M.bucket_accumulate(pts, order, starts), 5)
+    ms = kernel_ms(torch, lambda: M.bucket_accumulate(pts, order, starts), 5,
+                   ENTRIES[M.MSM_BUCKET.name])
     pms = cuda_ms(torch, lambda: M.bucket_accumulate_plain(
         pts, order[ws].contiguous(), starts[ws].contiguous()), 1)
     counts = (starts[:, 1:] - starts[:, :-1])[:, 1:]
@@ -309,6 +354,7 @@ def kernel_phase(torch, dev, nv: int) -> list:
     records.append(record(M.MSM_BUCKET, "co_zkvms_tpu_torch/ops/csrc/msm_bucket.cu",
                           ms, pms, nbytes, adds * madd,
                           note=f"plain_ms covers windows {ws} of {nw}"))
+    records[-1].update(registers_of(regs, M.MSM_BUCKET.name))
     log(f"[kernels] msm_bucket_accumulate 2^{nv} points c={c} ({nw} windows "
         f"x {nb} buckets) bit-exact on windows {ws}; {ms:.3f} ms (plain "
         f"{pms:.1f} ms on {len(ws)} windows), bound "
@@ -333,6 +379,67 @@ def kernel_phase(torch, dev, nv: int) -> list:
         f"window {line[0]}, {line[1]}")
     sumcheck_kernels(torch, dev, gen, nv, records)
     return records
+
+
+# the entry function of each kernel in the nvcc -Xptxas -v report
+ENTRIES = {"g1_add_mixed": "add_mixed_kernel", "g1_add": "add_kernel",
+           "g1_double": "double_kernel",
+           "g1_add_incomplete": "add_incomplete_kernel",
+           "msm_bucket_accumulate": "bucket_kernel"}
+
+
+def registers_of(regs: list, name: str) -> dict:
+    """{"registers": n, "spill_stores": bytes} of a kernel from the
+    ptxas summary lines (mangled names hold the entry as <len><name>E)."""
+    entry = ENTRIES.get(name)
+    if entry is None:
+        return {}
+    token = f"{len(entry)}{entry}E"
+    for line in regs:
+        if token in line.split(":")[0]:
+            counts = line.split(":")[1].split(",")
+            return {"registers": int(counts[0].split()[0]),
+                    "spill_stores": int(counts[1].split()[0])}
+    raise AssertionError(f"no ptxas line for {entry}")
+
+
+# the small launches of the main path: the weighted bucket sums of a c = 16
+# window set ([16, 256] buckets) and of an opening MSM ([19, 128])
+SMALL_SHAPES = (4096, 2432)
+
+
+def small_g1_launches(torch, C, p, q, records, jadd, pre_j, dbl) -> None:
+    """B5 and B7 at the main path's small sizes: bit-exact against their
+    plain versions at 4,096 points (the edge rows included), and timed at
+    each block size the wrapper may choose."""
+    for rec, kfn, fn, plain, ops_edge in (
+            (records[-3], C.G1_ADD, C.add, C.add_plain, 2 * pre_j + dbl),
+            (records[-1], C.G1_ADD_INCOMPLETE, C.add_incomplete,
+             C.add_incomplete_plain, 2 * jadd)):
+        sizes = {}
+        for n in SMALL_SHAPES:
+            args = (C.index(p, slice(0, n)), C.index(q, slice(0, n)))
+            if n == SMALL_SHAPES[0]:
+                got, want = fn(*args), plain(*args)
+                torch.cuda.synchronize()
+                if not same(torch, tuple(got), tuple(want)):
+                    raise AssertionError(f"{kfn.name} at {n} points: "
+                                         "kernel != plain")
+            chosen = C.add_block_threads(n, p.x.device)
+            by_threads = {t: kernel_ms(torch, lambda t=t: C._launch(
+                kfn, [*args[0], *args[1]], threads=t), 50, ENTRIES[kfn.name])
+                for t in C.ADD_BLOCK_SIZES}
+            b_ms, _ = bound(9 * ELEM * n, (n - 5) * jadd + ops_edge)
+            sizes[str(n)] = {"ms": by_threads[chosen], "threads": chosen,
+                             "ms_by_threads": by_threads, "bound_ms": b_ms}
+            log(f"[kernels] {kfn.name} {n} points"
+                f"{' bit-exact' if n == SMALL_SHAPES[0] else ''}, device "
+                f"time a launch: " +
+                ", ".join(f"{t} threads {ms:.4f} ms"
+                          for t, ms in by_threads.items()) +
+                f"; chosen {chosen}; bound {b_ms:.4f} ms")
+        rec["small_shapes"] = sizes
+        assert rec["name"] == kfn.name
 
 
 def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
@@ -527,6 +634,7 @@ def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
     t_entries = time.perf_counter() - t0
     for k in build.KERNELS.values():
         k.launches = 0
+    M.by_value_uses = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -552,6 +660,7 @@ def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
     torch.cuda.synchronize()
     t_rep3 = time.perf_counter() - t0
     launches = {name: k.launches for name, k in build.KERNELS.items()}
+    by_value = M.by_value_uses
     peak = torch.cuda.max_memory_allocated()
     diff = first_difference(rep3, single)
     if diff is not None:
@@ -561,16 +670,19 @@ def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched in slice 2: {missing}")
+    if by_value <= 0:
+        raise AssertionError("no MSM of slice 2 took the by-value path")
     for rec in records:
         rec["launches_slice2"] = launches[rec["name"]]
-    # the index commits tables of small values (0/1 matrix entries): B8 at
-    # such scalars, where one bucket of window 0 holds most points. Timed
-    # after the counts and the peak were read: the prover makes no such
-    # commit.
+    # the index commits tables of small values (0/1 matrix entries, counts):
+    # they take the by-value path. A separate commit of val_a, timed after
+    # the counts and the peak were read (the prover makes no such commit).
     val_a = dfs.vals[0]
-    order, starts, _, _ = M.sorted_windows(val_a, M.auto_c(val_a.shape[0]))
-    fullest = int((starts[:, 2:] - starts[:, 1:-1]).max())
+    uses = M.by_value_uses
     ms_val = cuda_ms(torch, lambda: pst13.commit(srs, val_a), 1)
+    if M.by_value_uses - uses != 2:
+        raise AssertionError("the val_a commit did not take the by-value path")
+    by_value_check(torch, dev, args.seed, srs, records)
 
     def check(proof):
         return spartan.verify(index, srs, [3], proof, dfs_vk=dfs.vk,
@@ -590,8 +702,8 @@ def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
         f"domain dlog={dlog} ({t_entries:.2f} s host)")
     log(f"[slice2] setup({dlog}, {args.seed}) {t_setup:.2f} s")
     log(f"[slice2] index (DFS build_index) {t_index:.2f} s; a separate "
-        f"commit of val_a (2^{dlog} entries of 0 or 1) takes {ms_val:.1f} ms, "
-        f"its fullest MSM bucket {fullest} points")
+        f"commit of val_a (2^{dlog} entries of 0 or 1) takes {ms_val:.1f} ms "
+        f"down the by-value path; {by_value} MSMs of the slice took it")
     log(f"[slice2] zk params (host) {t_params:.2f} s")
     log(f"[slice2] prove (single party, zk + dfs) {t_single:.2f} s")
     log(f"[slice2] prove_rep3 (zk + dfs) {t_rep3:.2f} s")
@@ -601,6 +713,42 @@ def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
     log(f"[slice2] peak device memory {peak / 2**30:.2f} GiB")
     log(f"[slice2] launches {json.dumps(launches)}")
     return srs, dfs, params, rep3
+
+
+def by_value_check(torch, dev, seed: int, srs, records: list) -> None:
+    """A 2^nv-entry 0/1 table committed through the by-value path (pst13.
+    commit) against the window path on B8 called directly on the same
+    table: the same affine point. Both timed by CUDA events."""
+    from co_zkvms_tpu_torch.ops import curve as C
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import msm as M
+    from co_zkvms_tpu_torch.ops import pst13
+
+    gen = torch.Generator().manual_seed(seed + 2)
+    n = 1 << srs.nv
+    bits = torch.randint(0, 2, (n,), generator=gen)
+    table = F.from_int(F.FR, bits.numpy(), device=dev)
+    uses = M.by_value_uses
+    comm, ms_bv = timed(torch, lambda: pst13.commit(srs, table))
+    if M.by_value_uses - uses != 1:
+        raise AssertionError("the 0/1 table did not take the by-value path")
+    pts = srs.level(0)
+    std = M.standard_words(table)
+
+    def b8_path():
+        sums, c = M.bucket_window_sums(pts, std)
+        return M.horner_affine_ints(C.points_to_ints(C.to_affine(sums)), c)
+
+    xy, ms_b8 = timed(torch, b8_path)
+    if comm.xy != xy:
+        raise AssertionError("by-value commit != the B8 window path's point")
+    log(f"[slice2] a 2^{srs.nv}-entry 0/1 table (seed {seed + 2}): by-value "
+        f"commit {ms_bv:.1f} ms == the B8 window path's point "
+        f"({ms_b8:.1f} ms), affine, bit for bit")
+    for rec in records:
+        if rec["name"] == M.MSM_BUCKET.name:
+            rec["skewed_01_table"] = {"entries": n, "by_value_ms": ms_bv,
+                                      "window_path_ms": ms_b8}
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +768,29 @@ def profile_phase(torch, dev, r1cs, srs, z, want) -> None:
     if proof != want:
         raise AssertionError("profiled prove != the slice's proof")
     report_profile(prof.events(), "spartan", "profile")
+
+
+def profile_index_phase(torch, r1cs, srs, want) -> None:
+    """Slice 2's DFS build_index again under the profiler: its wall time,
+    the device's busy time and idle share, and its kernels by device time.
+    The commitments must equal the slice's."""
+    from co_zkvms_tpu_torch.models import spartan_dfs
+    from co_zkvms_tpu_torch.utils import phases
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        dfs = spartan_dfs.build_index(r1cs, srs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if dfs.comms != want.comms:
+        raise AssertionError("profiled build_index != the slice's index")
+    events = prof.events()
+    busy = phases.union_length(phases.device_intervals(events)) / 1e6
+    log(f"[profile3] DFS build_index under torch.profiler: {wall:.2f} s, "
+        f"device busy {busy:.4f} s (idle {100 * (1 - busy / wall):.1f} %)")
+    report_device_work(events, "profile3")
 
 
 def profile_rep3_phase(torch, dev, index, z, seed, srs, dfs, params,
@@ -885,6 +1056,13 @@ def report_profile(events, model: str, tag: str) -> None:
     for row in rows:
         log(f"[{tag}]   {row.name:12s} host {row.host_s:8.4f} s   "
             f"device busy {row.device_s:8.4f} s")
+    report_device_work(events, tag)
+
+
+def report_device_work(events, tag: str) -> None:
+    """The eight kernel names with the most device time in ``events``."""
+    from co_zkvms_tpu_torch.utils import phases
+
     per_kernel = {}
     for e in events:
         if phases.is_device_work(e):
@@ -892,9 +1070,13 @@ def report_profile(events, model: str, tag: str) -> None:
             per_kernel[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     log(f"[{tag}]   device work: {sum(c for _, c in per_kernel.values())} "
         f"events of {len(per_kernel)} names, by device time:")
-    for key, (us, cnt) in sorted(per_kernel.items(),
-                                 key=lambda kv: -kv[1][0])[:8]:
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    for key, (us, cnt) in ranked[:8]:
         log(f"[{tag}]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
+    # the port's G1 and bucket kernels below the first eight
+    for key, (us, cnt) in ranked[8:]:
+        if any(f"::{entry}(" in key for entry in ENTRIES.values()):
+            log(f"[{tag}]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
 
 
 if __name__ == "__main__":

@@ -16,9 +16,11 @@
 
 #ifdef __CUDACC__
 #define FDEV __device__ __forceinline__
+#define FMEMBER __device__ __forceinline__
 #define FCONST static __constant__ const
 #else
 #define FDEV static inline
+#define FMEMBER inline
 #define FCONST static const
 #endif
 
@@ -198,6 +200,206 @@ FDEV void fe_one(uint32_t r[8]) {
 FDEV void fe_zero(uint32_t r[8]) {
 #pragma unroll
   for (int j = 0; j < 8; j++) r[j] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// Carry-chain Montgomery product (kernels B5 and B7)
+//
+// mont_mul above accumulates in C 64-bit integers, so each 32x32 product
+// becomes a wide multiply plus separate carry adds. The product below is
+// written in the hardware's carry-chain instructions instead (PTX
+// mad.lo.cc / madc.hi.cc / addc.cc, after sppark's mont_t): the products
+// a[j] * b[i] of even j and of odd j go to two accumulators, `even` (word k
+// at 2^(32k)) and `odd` (word k at 2^(32(k+1))), so that each chain takes a
+// product's low and high halves as consecutive words and every 32x32
+// product costs two multiply-adds with the carries folded in. The
+// Montgomery reduction is interleaved (CIOS) in the same form; after each
+// step the two accumulators swap roles, and the shift by one word is folded
+// into the next step's chain (madc_n_rshift). The carry out of the `odd`
+// chain is dropped: its top word holds less than 2^31 because the modulus
+// has two spare top bits (m < 2^254) and both operands are below m.
+//
+// On the device every step below is one PTX instruction and the carry flag
+// is the hardware's (asm volatile keeps the instructions in order). On the
+// host (no __CUDA_ARCH__) each step is emulated on C integers with the flag
+// in a variable, so the same sequence can be checked with g++.
+// ---------------------------------------------------------------------------
+
+struct CarryFlag {
+#ifndef __CUDA_ARCH__
+  uint32_t cf = 0;
+#endif
+};
+
+#ifdef __CUDA_ARCH__
+#define CC_OP(name, text)                                                  \
+  FDEV uint32_t name(CarryFlag&, uint32_t a, uint32_t b, uint32_t c) {     \
+    uint32_t r;                                                            \
+    asm volatile(text " %0, %1, %2, %3;"                                   \
+                 : "=r"(r) : "r"(a), "r"(b), "r"(c));                      \
+    return r;                                                              \
+  }
+#define CC_ADD(name, text)                                                 \
+  FDEV uint32_t name(CarryFlag&, uint32_t a, uint32_t b) {                 \
+    uint32_t r;                                                            \
+    asm volatile(text " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));          \
+    return r;                                                              \
+  }
+CC_OP(mad_lo_cc, "mad.lo.cc.u32")      // lo(a b) + c, carry out
+CC_OP(madc_lo_cc, "madc.lo.cc.u32")    // lo(a b) + c + carry, carry out
+CC_OP(madc_hi_cc, "madc.hi.cc.u32")    // hi(a b) + c + carry, carry out
+CC_OP(madc_hi, "madc.hi.u32")          // hi(a b) + c + carry
+CC_ADD(add_cc, "add.cc.u32")           // a + b, carry out
+CC_ADD(addc_cc, "addc.cc.u32")         // a + b + carry, carry out
+CC_ADD(addc, "addc.u32")               // a + b + carry
+CC_ADD(sub_cc, "sub.cc.u32")           // a - b, borrow out
+CC_ADD(subc_cc, "subc.cc.u32")         // a - b - borrow, borrow out
+CC_ADD(subc, "subc.u32")               // a - b - borrow
+#undef CC_OP
+#undef CC_ADD
+FDEV uint32_t mul_lo(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.lo.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+FDEV uint32_t mul_hi(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.hi.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+#else
+FDEV uint32_t cc_out(CarryFlag& f, uint64_t s) {
+  f.cf = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+FDEV uint32_t mad_lo_cc(CarryFlag& f, uint32_t a, uint32_t b, uint32_t c) {
+  return cc_out(f, (uint64_t)(uint32_t)(a * b) + c);
+}
+FDEV uint32_t madc_lo_cc(CarryFlag& f, uint32_t a, uint32_t b, uint32_t c) {
+  return cc_out(f, (uint64_t)(uint32_t)(a * b) + c + f.cf);
+}
+FDEV uint32_t madc_hi_cc(CarryFlag& f, uint32_t a, uint32_t b, uint32_t c) {
+  return cc_out(f, (((uint64_t)a * b) >> 32) + c + f.cf);
+}
+FDEV uint32_t madc_hi(CarryFlag& f, uint32_t a, uint32_t b, uint32_t c) {
+  return (uint32_t)((((uint64_t)a * b) >> 32) + c + f.cf);
+}
+FDEV uint32_t add_cc(CarryFlag& f, uint32_t a, uint32_t b) {
+  return cc_out(f, (uint64_t)a + b);
+}
+FDEV uint32_t addc_cc(CarryFlag& f, uint32_t a, uint32_t b) {
+  return cc_out(f, (uint64_t)a + b + f.cf);
+}
+FDEV uint32_t addc(CarryFlag& f, uint32_t a, uint32_t b) {
+  return a + b + f.cf;
+}
+FDEV uint32_t sub_cc(CarryFlag& f, uint32_t a, uint32_t b) {
+  const uint64_t d = (uint64_t)a - b;
+  f.cf = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+FDEV uint32_t subc_cc(CarryFlag& f, uint32_t a, uint32_t b) {
+  const uint64_t d = (uint64_t)a - b - f.cf;
+  f.cf = (uint32_t)(d >> 63);
+  return (uint32_t)d;
+}
+FDEV uint32_t subc(CarryFlag& f, uint32_t a, uint32_t b) {
+  return a - b - f.cf;
+}
+FDEV uint32_t mul_lo(uint32_t a, uint32_t b) { return a * b; }
+FDEV uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+#endif
+
+// acc[j], acc[j + 1] = lo, hi of a[j] * bi for even j (exact, no carries).
+FDEV void cc_mul_n(uint32_t acc[8], const uint32_t* a, uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    acc[j] = mul_lo(a[j], bi);
+    acc[j + 1] = mul_hi(a[j], bi);
+  }
+}
+
+// acc += a[even j] * bi as one chain; leaves the carry out in f.
+FDEV void cc_cmad_n(CarryFlag& f, uint32_t acc[8], const uint32_t* a,
+                    uint32_t bi) {
+  acc[0] = mad_lo_cc(f, a[0], bi, acc[0]);
+  acc[1] = madc_hi_cc(f, a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    acc[j] = madc_lo_cc(f, a[j], bi, acc[j]);
+    acc[j + 1] = madc_hi_cc(f, a[j], bi, acc[j + 1]);
+  }
+}
+
+// odd = (odd >> two words) + a[even j] * bi, continuing the carry in f.
+FDEV void cc_madc_n_rshift(CarryFlag& f, uint32_t odd[8], const uint32_t* a,
+                           uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < 6; j += 2) {
+    odd[j] = madc_lo_cc(f, a[j], bi, odd[j + 2]);
+    odd[j + 1] = madc_hi_cc(f, a[j], bi, odd[j + 3]);
+  }
+  odd[6] = madc_lo_cc(f, a[6], bi, 0);
+  odd[7] = madc_hi(f, a[6], bi, 0);
+}
+
+// One CIOS step: (even, odd) += a * bi, then + m * MOD with m chosen so
+// that word 0 of `even` becomes 0. The caller swaps the roles of the two
+// arrays for the next step.
+template <int F>
+FDEV void cc_mad_n_redc(uint32_t even[8], uint32_t odd[8], const uint32_t a[8],
+                        uint32_t bi, bool first) {
+  CarryFlag f;
+  if (first) {
+    cc_mul_n(odd, a + 1, bi);
+    cc_mul_n(even, a, bi);
+  } else {
+    even[0] = add_cc(f, even[0], odd[1]);
+    cc_madc_n_rshift(f, odd, a + 1, bi);
+    cc_cmad_n(f, even, a, bi);
+    odd[7] = addc(f, odd[7], 0);
+  }
+  const uint32_t mi = mul_lo(even[0], N0[F]);
+  cc_cmad_n(f, odd, MOD[F] + 1, mi);
+  cc_cmad_n(f, even, MOD[F], mi);
+  odd[7] = addc(f, odd[7], 0);
+}
+
+// Montgomery product r = a * b * R^{-1} mod m on carry chains. Requires
+// a, b < m; r may alias a or b. The same value as mont_mul.
+template <int F>
+FDEV void mul_cc(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  uint32_t even[8], odd[8];
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) {
+    cc_mad_n_redc<F>(even, odd, a, b[i], i == 0);
+    cc_mad_n_redc<F>(odd, even, a, b[i + 1], false);
+  }
+  // merge: even + (odd >> one word) < 2m
+  CarryFlag f;
+  even[0] = add_cc(f, even[0], odd[1]);
+#pragma unroll
+  for (int i = 1; i < 7; i++) even[i] = addc_cc(f, even[i], odd[i + 1]);
+  even[7] = addc(f, even[7], 0);
+  // one conditional subtraction of m
+  uint32_t d[8];
+  d[0] = sub_cc(f, even[0], MOD[F][0]);
+#pragma unroll
+  for (int j = 1; j < 8; j++) d[j] = subc_cc(f, even[j], MOD[F][j]);
+  const uint32_t borrow = subc(f, 0, 0);    // all ones when even < m
+#pragma unroll
+  for (int j = 0; j < 8; j++) r[j] = borrow ? even[j] : d[j];
+}
+
+// Montgomery square on the same chains: the product of a with itself
+// (264 multiply-add slots, where mont_sqr's SOS form needs 208: a dedicated
+// square keeps a 16-word product live, which the G1 kernels' register
+// budget does not hold). Requires a < m.
+template <int F>
+FDEV void sqr_cc(uint32_t r[8], const uint32_t a[8]) {
+  mul_cc<F>(r, a, a);
 }
 
 #ifdef __CUDACC__

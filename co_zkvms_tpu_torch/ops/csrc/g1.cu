@@ -1,5 +1,6 @@
 // Batched BN254 G1 kernels: complete mixed add (B4), complete Jacobian add
-// (B5), doubling (B6) and the incomplete add of the MSM merge trees (B7).
+// (B5), doubling (B6) and the incomplete add of the MSM merge trees and the
+// by-value levels (B7).
 //
 // Replaces co_zkvms_tpu/ops/curve_pallas.py add_mixed (:383, body
 // _add_mixed_kernel :57), add (:409, _add_kernel :116), double (:456,
@@ -7,11 +8,20 @@
 // _add_incomplete_kernel :177).
 //
 // Bound on the H100: integer multiplies. A complete add is 11 to 16 field
-// products (some 3,000 IMAD slots) against 160 to 192 bytes of traffic per
-// point, so bytes never bind. Design: one thread per point, the point
-// formulas of g1.cuh entirely in registers, 128 threads a block so the
-// ~200-register threads still fit several warps per SM; edge cases branch
-// (rare, so warps stay converged) instead of computing every path.
+// products (some 3,000 to 4,200 IMAD slots) against 160 to 288 bytes of
+// traffic per point, so bytes never bind. Design: one thread per point, the
+// point formulas of g1.cuh entirely in registers; edge cases branch (rare,
+// so warps stay converged) instead of computing every path.
+//
+// B5 and B7 take field.cuh's carry-chain product (ChainArith), so that a
+// 32x32 product costs the two multiply-add slots the bound counts, and a
+// budget of 128 registers with no spills (__launch_bounds__(128, 4): four
+// blocks of 128 threads an SM, so 2^16 points run in one wave on 132 SMs).
+// B5's doubling path runs out of line and reads p again from memory, so
+// neither p nor the doubling sets the register peak. Their block
+// size is the caller's (32, 64 or 128 threads): a small launch takes
+// smaller blocks so that it spreads over more SMs. B4 and B6 keep
+// mont_mul / mont_sqr and 128-thread blocks.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -55,8 +65,24 @@ add_mixed_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ p
   store_jac(ox, oy, oz, i, o);
 }
 
-template <bool COMPLETE>
-__global__ void __launch_bounds__(kThreads)
+// B5 and B7: four blocks of up to 128 threads an SM, so at most 128
+// registers a thread.
+constexpr int kAddMaxThreads = 128;
+constexpr int kAddMinBlocks = 4;
+
+// B5's doubling path (p == q), out of line so that neither it nor p sets
+// the register peak of the add: it reads p again and writes the result.
+__device__ __noinline__ void double_row(const uint32_t* px, const uint32_t* py,
+                                        const uint32_t* pz, uint32_t* ox,
+                                        uint32_t* oy, uint32_t* oz,
+                                        long long i) {
+  Jac p, o;
+  load_jac(p, px, py, pz, i);
+  jac_double_t<ChainArith>(o, p);
+  store_jac(ox, oy, oz, i, o);
+}
+
+__global__ void __launch_bounds__(kAddMaxThreads, kAddMinBlocks)
 add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
            const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
            const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
@@ -67,11 +93,28 @@ add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
   Jac p, q, o;
   load_jac(p, px, py, pz, i);
   load_jac(q, qx, qy, qz, i);
-  if (COMPLETE) {
-    jac_add(o, p, q);
+  if (jac_add_unless_equal<ChainArith>(o, p, q)) {
+    store_jac(ox, oy, oz, i, o);
   } else {
-    jac_add_incomplete(o, p, q);
+    double_row(px, py, pz, ox, oy, oz, i);
   }
+}
+
+__global__ void __launch_bounds__(kAddMaxThreads, kAddMinBlocks)
+add_incomplete_kernel(const uint32_t* __restrict__ px,
+                      const uint32_t* __restrict__ py,
+                      const uint32_t* __restrict__ pz,
+                      const uint32_t* __restrict__ qx,
+                      const uint32_t* __restrict__ qy,
+                      const uint32_t* __restrict__ qz,
+                      uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                      uint32_t* __restrict__ oz, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Jac p, q, o;
+  load_jac(p, px, py, pz, i);
+  load_jac(q, qx, qy, qz, i);
+  jac_add_incomplete_t<ChainArith>(o, p, q);
   store_jac(ox, oy, oz, i, o);
 }
 
@@ -88,8 +131,8 @@ double_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
   store_jac(ox, oy, oz, i, o);
 }
 
-unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+unsigned blocks_for(long long n, int threads = kThreads) {
+  return (unsigned)((n + threads - 1) / threads);
 }
 
 }  // namespace
@@ -111,7 +154,10 @@ int g1_add_mixed(const void* px, const void* py, const void* pz,
 static int launch_add(bool complete, const void* px, const void* py,
                       const void* pz, const void* qx, const void* qy,
                       const void* qz, void* ox, void* oy, void* oz,
-                      long long n, void* stream) {
+                      long long n, int threads, void* stream) {
+  if (threads != 32 && threads != 64 && threads != kAddMaxThreads) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* a = static_cast<const uint32_t*>(px);
   const uint32_t* b = static_cast<const uint32_t*>(py);
@@ -123,26 +169,29 @@ static int launch_add(bool complete, const void* px, const void* py,
   uint32_t* y = static_cast<uint32_t*>(oy);
   uint32_t* z = static_cast<uint32_t*>(oz);
   if (complete) {
-    add_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, d, e, f, x,
-                                                        y, z, n);
+    add_kernel<<<blocks_for(n, threads), threads, 0, s>>>(a, b, c, d, e, f,
+                                                          x, y, z, n);
   } else {
-    add_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(a, b, c, d, e, f, x,
-                                                         y, z, n);
+    add_incomplete_kernel<<<blocks_for(n, threads), threads, 0, s>>>(
+        a, b, c, d, e, f, x, y, z, n);
   }
   return (int)cudaGetLastError();
 }
 
+// threads: the block size, 32, 64 or 128 (the caller picks it from n).
 int g1_add(const void* px, const void* py, const void* pz, const void* qx,
            const void* qy, const void* qz, void* ox, void* oy, void* oz,
-           long long n, void* stream) {
-  return launch_add(true, px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
+           long long n, int threads, void* stream) {
+  return launch_add(true, px, py, pz, qx, qy, qz, ox, oy, oz, n, threads,
+                    stream);
 }
 
 int g1_add_incomplete(const void* px, const void* py, const void* pz,
                       const void* qx, const void* qy, const void* qz,
-                      void* ox, void* oy, void* oz, long long n,
+                      void* ox, void* oy, void* oz, long long n, int threads,
                       void* stream) {
-  return launch_add(false, px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
+  return launch_add(false, px, py, pz, qx, qy, qz, ox, oy, oz, n, threads,
+                    stream);
 }
 
 int g1_double(const void* px, const void* py, const void* pz, void* ox,

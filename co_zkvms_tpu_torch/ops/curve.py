@@ -17,6 +17,7 @@ give the same Jacobian coordinates bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -214,13 +215,36 @@ _N = ctypes.c_longlong
 _CP = "co_zkvms_tpu/ops/curve_pallas.py"
 G1_ADD_MIXED = build.KernelFn("g1_add_mixed", "g1", "g1_add_mixed",
                               [_P] * 8 + [_N, _P], replaces=f"{_CP}:383")
-G1_ADD = build.KernelFn("g1_add", "g1", "g1_add", [_P] * 9 + [_N, _P],
+G1_ADD = build.KernelFn("g1_add", "g1", "g1_add",
+                        [_P] * 9 + [_N, ctypes.c_int, _P],
                         replaces=f"{_CP}:409")
 G1_DOUBLE = build.KernelFn("g1_double", "g1", "g1_double",
                            [_P] * 6 + [_N, _P], replaces=f"{_CP}:456")
 G1_ADD_INCOMPLETE = build.KernelFn("g1_add_incomplete", "g1",
-                                   "g1_add_incomplete", [_P] * 9 + [_N, _P],
+                                   "g1_add_incomplete",
+                                   [_P] * 9 + [_N, ctypes.c_int, _P],
                                    replaces=f"{_CP}:432")
+# B5 and B7 take their block size from the caller
+_SIZED = (G1_ADD, G1_ADD_INCOMPLETE)
+ADD_BLOCK_SIZES = (128, 64, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    # once per device: B5 and B7 run thousands of times a prove
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def add_block_threads(n: int, device) -> int:
+    """Block size of B5 and B7 for n points: the largest of 128, 64 and 32
+    threads whose blocks still cover every SM, else 32 (a launch that small
+    is bound by one thread's chain of products, so it spreads as wide as it
+    can)."""
+    sms = _sm_count(torch.device(device))
+    for t in ADD_BLOCK_SIZES:
+        if -(-n // t) >= sms:
+            return t
+    return ADD_BLOCK_SIZES[-1]
 
 
 def _flat_coords(coords):
@@ -238,14 +262,20 @@ def _flat_coords(coords):
     return flat, shape
 
 
-def _launch(kfn: build.KernelFn, coords) -> JPoint:
+def _launch(kfn: build.KernelFn, coords, threads: int | None = None) -> JPoint:
+    """One launch of ``kfn`` over the broadcast batch. B5 and B7 take a
+    block size: ``threads``, or ``add_block_threads`` of the batch."""
     flat, shape = _flat_coords(coords)
-    out = [torch.empty(shape, dtype=torch.int32, device=flat[0].device)
+    device = flat[0].device
+    out = [torch.empty(shape, dtype=torch.int32, device=device)
            for _ in range(3)]
     n = flat[0].shape[0]
     if n:
+        sized = ()
+        if kfn in _SIZED:
+            sized = (threads or add_block_threads(n, device),)
         kfn(*(c.data_ptr() for c in flat), *(o.data_ptr() for o in out), n,
-            build.stream_ptr(flat[0].device))
+            *sized, build.stream_ptr(device))
     return JPoint(*out)
 
 

@@ -13,13 +13,22 @@ adds equal points whenever a run of buckets is empty), then doublings (B6).
 The few window sums meet on the host, where a Horner pass over Python ints
 combines them, as in the JAX package's ``_horner_affine_ints``.
 
-As in the JAX package, the incomplete adds assume the points are
-independent bases (an SRS): two disjoint subset sums of them never
-coincide, short of a discrete-log relation.
+Small-valued scalars (0/1 tables, counter polynomials) take the JAX
+package's by-value path instead (``_by_value_sums``): Pippenger's bucket
+occupancy equals a value's multiplicity there, so one B8 thread would walk
+a run of most of the points. The points are grouped by value first, a
+segmented sum in ceil(log2 N) full-width incomplete adds (B7), and the
+window path then runs over the at most ``u_bound`` group sums, whose
+values are distinct. ``by_value_gate`` holds the reference's condition.
+
+As in the JAX package, the incomplete adds (the merge trees and the
+by-value levels) assume the points are independent bases (an SRS): two
+disjoint subset sums of them never coincide, short of a discrete-log
+relation.
 
 Not ported, because they work around TPU limits: the dense [R, 16, nb]
-grid, the quantised grid depths, the by-value path, the host-gating phases
-and the digit-buffer budget. Any correct MSM gives the same point.
+grid, the quantised grid depths, the host-gating phases and the
+digit-buffer budget. Any correct MSM gives the same point.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import torch
 from . import curve as C
 from . import field as F
 from .curve import APoint, JPoint
-from .field import FR
+from .field import FQ, FR
 from ..utils import build
 
 SCALAR_BITS = 254
@@ -47,11 +56,20 @@ def auto_c(n: int) -> int:
     return max(2, min(16, n.bit_length() - 1 - 2))
 
 
+def standard_words(scalars_mont) -> torch.Tensor:
+    """Montgomery Fr scalars [N, 8] -> standard-form words int64 [N, 8]."""
+    return F.as_u32(F.from_mont(FR, scalars_mont))
+
+
 def window_digits(scalars_mont, c: int) -> torch.Tensor:
     """Montgomery Fr scalars [N, 8] -> window digits int64 [n_windows, N]."""
+    return _digits_of_words(standard_words(scalars_mont), c)
+
+
+def _digits_of_words(std, c: int) -> torch.Tensor:
+    """Standard-form words int64 [N, 8] -> window digits [n_windows, N]."""
     if not 1 <= c <= 16:
         raise ValueError(f"window bits must be in [1, 16], got {c}")
-    std = F.as_u32(F.from_mont(FR, scalars_mont))          # [N, 8] int64
     mask = (1 << c) - 1
     outs = []
     for w in range(n_windows(c)):
@@ -274,19 +292,150 @@ def _fold_top(buckets: JPoint, k: int, nb_top: int) -> JPoint:
 def sorted_windows(scalars_mont, c: int):
     """Bucket runs of every window, top window regrouped: (order, starts,
     k, nb_top) for ``bucket_accumulate`` and ``_fold_top``."""
-    digits, k, nb_top = _top_regroup(window_digits(scalars_mont, c), c)
+    return _sorted_windows_of_words(standard_words(scalars_mont), c)
+
+
+def _sorted_windows_of_words(std, c: int):
+    digits, k, nb_top = _top_regroup(_digits_of_words(std, c), c)
     order, starts = sort_windows(digits, c)
     return order, starts, k, nb_top
 
 
-def window_sums(points: APoint, scalars_mont, c: int | None = None):
-    """Per-window weighted sums JPoint [nw] and the window bits used."""
-    n = points.x.shape[0]
+def bucket_window_sums(points: APoint, std, c: int | None = None):
+    """The window path: per-window weighted sums JPoint [nw] of B8's
+    buckets, and the window bits used. ``std``: standard-form scalar
+    words int64 [N, 8] (``standard_words``)."""
     if c is None:
-        c = auto_c(n)
-    order, starts, k, nb_top = sorted_windows(scalars_mont, c)
+        c = auto_c(points.x.shape[0])
+    order, starts, k, nb_top = _sorted_windows_of_words(std, c)
     buckets = _fold_top(bucket_accumulate(points, order, starts), k, nb_top)
     return weighted_bucket_sum(buckets, c), c
+
+
+# ---------------------------------------------------------------------------
+# The by-value path for small-valued scalars
+# ---------------------------------------------------------------------------
+
+BY_VALUE_MIN_N = 1 << 13
+SMALL_VALUE_BITS = 16
+
+# window-sum calls that took the by-value path (read by chip_smoke.py, as a
+# kernel's ``launches``)
+by_value_uses = 0
+
+
+def by_value_bound(n: int) -> int:
+    """u_bound: the most distinct values the by-value path takes for n
+    points, and the size of its follow-up MSM."""
+    return min(n // 8, 1 << 12)
+
+
+def by_value_gate(n: int, small: bool, distinct: int) -> bool:
+    """The JAX package's condition (``co_zkvms_tpu/ops/msm.py:707-714,
+    725-729``), which it applied on a TPU only and the port applies on
+    every device: at least 2^13 points, every scalar below 2^16, and at
+    most ``by_value_bound(n)`` distinct values."""
+    return (n >= BY_VALUE_MIN_N and bool(small)
+            and distinct <= by_value_bound(n))
+
+
+def _value_stats(std) -> torch.Tensor:
+    """[small, distinct] int64 on the scalars' device, without a sync."""
+    small = ((std[:, 1:] == 0).all() &
+             (std[:, 0] >> SMALL_VALUE_BITS == 0).all()).to(torch.int64)
+    v = torch.sort(std[:, 0] & ((1 << SMALL_VALUE_BITS) - 1)).values
+    distinct = 1 + (v[1:] != v[:-1]).sum()
+    return torch.stack([small, distinct])
+
+
+def small_value_stats(std) -> tuple:
+    """(all scalars < 2^16?, number of distinct low 16-bit values) of
+    standard-form words [N, 8], as the JAX package's
+    ``_small_value_stats`` computes them on its 16-bit limbs."""
+    small, distinct = _value_stats(std).tolist()
+    return bool(small), int(distinct)
+
+
+def _group_by_value(points: APoint, vals, u_bound: int):
+    """Sum the points of each distinct scalar value: sort by value (stable),
+    then a segmented suffix sum in ceil(log2 N) levels, each one full-width
+    B7 launch. Position ``pos`` adds the partial sum at ``pos + 2^l`` when
+    that position lies in its segment, and infinity otherwise, so every
+    add joins two disjoint runs of distinct points.
+
+    Returns (group sums JPoint [u_bound], their values int64 [u_bound],
+    valid mask [u_bound]); empty slots are infinity with value 0. The
+    Jacobian coordinates equal the JAX package's ``_group_by_value``: the
+    same pairs through the same formula, and affine infinity enters as
+    (0, 0, 0) as there."""
+    n = vals.shape[0]
+    device = vals.device
+    vals_sorted, order = torch.sort(vals, stable=True)
+    flags = torch.ones(n, dtype=torch.bool, device=device)
+    flags[1:] = vals_sorted[1:] != vals_sorted[:-1]
+    segid = torch.cumsum(flags, 0)
+    px, py = points.x[order], points.y[order]
+    p_inf = F.is_zero(px) & F.is_zero(py)
+    pz = F.select(p_inf, F.zeros((n,), device), F.ones_mont(FQ, (n,), device))
+    acc = JPoint(px, py, pz)
+    inf = C.infinity((n,), device)
+    pos = torch.arange(n, device=device)
+    for lvl in range(max((n - 1).bit_length(), 1)):
+        idx = (pos + (1 << lvl)).clamp(max=n - 1)
+        valid = (pos + (1 << lvl) < n) & (segid[idx] == segid)
+        acc = C.add_incomplete(acc, C.select(valid, C.index(acc, idx), inf))
+    # the head of segment g (1-based segid) goes to slot g - 1; the rest of
+    # the positions, and heads past u_bound, go to a slot that is dropped
+    slot = torch.where(flags & (segid <= u_bound), segid - 1, u_bound)
+    heads = torch.full((u_bound + 1,), n, dtype=torch.int64, device=device)
+    heads.scatter_(0, slot, pos)
+    heads = heads[:u_bound]
+    ok = heads < n
+    hidx = heads.clamp(max=n - 1)
+    gsum = C.select(ok, C.index(acc, hidx), C.infinity((u_bound,), device))
+    gval = torch.where(ok, vals_sorted[hidx], 0)
+    return gsum, gval, ok
+
+
+def _by_value_sums(points: APoint, vals, u_bound: int):
+    """Window sums for small-valued scalars ``vals`` (int64 [N]): group by
+    value, then the window path over the u_bound affine group sums with
+    their values as scalars (infinity slots carry 0). Every value is then
+    distinct, so no bucket holds more than about u_bound / 2^c points.
+    Returns (sums JPoint [nw], window bits)."""
+    gsum, gval, _ = _group_by_value(points, vals, u_bound)
+    aff = C.to_affine(gsum)
+    std = torch.zeros((u_bound, F.NLIMBS), dtype=torch.int64,
+                      device=vals.device)
+    std[:, 0] = gval
+    return bucket_window_sums(APoint(aff.x.contiguous(), aff.y.contiguous()),
+                              std)
+
+
+def _stats_if_gated(std):
+    """The gate's device-side stats for an MSM of this size, or None."""
+    return _value_stats(std) if std.shape[0] >= BY_VALUE_MIN_N else None
+
+
+def _sums_of_words(points: APoint, std, stats, c: int | None):
+    """Window sums down the path the gate chooses; ``stats`` are the
+    fetched (small, distinct), or None below the gate's size."""
+    global by_value_uses
+    n = std.shape[0]
+    if stats is not None and by_value_gate(n, *stats):
+        by_value_uses += 1
+        return _by_value_sums(points, std[:, 0], by_value_bound(n))
+    return bucket_window_sums(points, std, c)
+
+
+def window_sums(points: APoint, scalars_mont, c: int | None = None):
+    """Per-window weighted sums JPoint [nw] and the window bits used
+    (small-valued scalars take the by-value path and its own bits)."""
+    std = standard_words(scalars_mont)
+    stats = _stats_if_gated(std)
+    if stats is not None:
+        stats = stats.tolist()
+    return _sums_of_words(points, std, stats, c)
 
 
 def msm(points: APoint, scalars_mont, c: int | None = None) -> JPoint:
@@ -307,9 +456,16 @@ def msm_batch_ints(jobs, chunk: int = 64) -> list:
     batched affine conversion and one device-to-host copy."""
     out = []
     for s in range(0, len(jobs), chunk):
+        part = jobs[s:s + chunk]
+        stds = [standard_words(sc) for _, sc in part]
+        # the by-value gate's stats of every job in one fetch
+        gated = [_stats_if_gated(std) for std in stds]
+        live = [g for g in gated if g is not None]
+        fetched = iter(torch.stack(live).tolist() if live else [])
         sums, bits = [], []
-        for pts, sc in jobs[s:s + chunk]:
-            w, c = window_sums(pts, sc)
+        for (pts, _), std, g in zip(part, stds, gated):
+            stats = None if g is None else next(fetched)
+            w, c = _sums_of_words(pts, std, stats, None)
             sums.append(w)
             bits.append(c)
         aff = C.points_to_ints(C.to_affine(C.cat(sums)))

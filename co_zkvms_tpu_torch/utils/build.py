@@ -107,15 +107,18 @@ def ptxas_summary(log: str) -> list:
     """One 'kernel: registers, spill stores' line per entry function of an
     ``-Xptxas -v`` log."""
     lines = []
-    current = spill = None
+    current = spill = props = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             current = line.split("'")[1]
-        elif "spill stores" in line and current:
+        elif "Function properties for" in line:
+            # also printed for non-entry (noinline) device functions
+            props = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and current and props == current:
             spill = line.split(",")[1].strip()
         elif "Used" in line and "registers" in line and current:
             regs = line.split("Used")[1].split(",")[0].strip()
-            lines.append(f"{current}: {regs}, {spill or '0 bytes spill stores'}")
+            lines.append(f"{current}: {regs}, {spill or 'spill stores not reported'}")
             current = spill = None
     return lines
 

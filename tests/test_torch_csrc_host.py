@@ -2,10 +2,12 @@
 
 ops/csrc/field.cuh, g1.cuh and poseidon.cuh compile with a host compiler
 too (FDEV -> inline). This test builds a small harness over them with g++
-and holds the kernels' Montgomery products, modular add/sub and G1
-formulas to the port's plain PyTorch versions bit for bit, edge rows
-included, and B12's t = 3 Poseidon permutation to the host mirror
-``host_permute``. No nvcc is needed; without g++ the test skips.
+and holds the kernels' Montgomery products (the C CIOS form, and the
+carry-chain form of B5 and B7 with each PTX step emulated on C integers),
+modular add/sub and G1 formulas under both arithmetic policies to the
+port's plain PyTorch versions bit for bit, edge rows included, and B12's
+t = 3 Poseidon permutation to the host mirror ``host_permute``. No nvcc
+is needed; without g++ the test skips.
 """
 
 import ctypes
@@ -62,6 +64,19 @@ void h_add(int f, const u32* a, const u32* b, u32* r, int n) {
     else mod_add<1>(r + 8 * i, a + 8 * i, b + 8 * i);
   }
 }
+// the carry-chain product and square of B5 and B7 (emulated on the host)
+void h_mul_cc(int f, const u32* a, const u32* b, u32* r, int n) {
+  for (int i = 0; i < n; i++) {
+    if (f == 0) mul_cc<0>(r + 8 * i, a + 8 * i, b + 8 * i);
+    else mul_cc<1>(r + 8 * i, a + 8 * i, b + 8 * i);
+  }
+}
+void h_sqr_cc(int f, const u32* a, u32* r, int n) {
+  for (int i = 0; i < n; i++) {
+    if (f == 0) sqr_cc<0>(r + 8 * i, a + 8 * i);
+    else sqr_cc<1>(r + 8 * i, a + 8 * i);
+  }
+}
 void h_sub(int f, const u32* a, const u32* b, u32* r, int n) {
   for (int i = 0; i < n; i++) {
     if (f == 0) mod_sub<0>(r + 8 * i, a + 8 * i, b + 8 * i);
@@ -76,18 +91,29 @@ static void st(u32* const* c, int i, const Jac& p) {
   fe_copy(c[0] + 8 * i, p.x); fe_copy(c[1] + 8 * i, p.y);
   fe_copy(c[2] + 8 * i, p.z);
 }
+}  // extern "C"
 // op: 0 mixed add (q = x, y), 1 add, 2 incomplete add, 3 double
-void h_g1(int op, const u32* const* p, const u32* const* q, u32* const* o,
-          int n) {
+template <class Ar>
+static void g1_rows(int op, const u32* const* p, const u32* const* q,
+                    u32* const* o, int n) {
   for (int i = 0; i < n; i++) {
     Jac a, b, r;
     ld(a, p, i);
-    if (op == 0) { jac_add_mixed(r, a, q[0] + 8 * i, q[1] + 8 * i); }
-    else if (op == 3) { jac_double(r, a); }
-    else { ld(b, q, i); if (op == 1) jac_add(r, a, b);
-           else jac_add_incomplete(r, a, b); }
+    if (op == 0) { jac_add_mixed_t<Ar>(r, a, q[0] + 8 * i, q[1] + 8 * i); }
+    else if (op == 3) { jac_double_t<Ar>(r, a); }
+    else if (op == 1) {
+      ld(b, q, i);
+      if (!jac_add_unless_equal<Ar>(r, a, b)) jac_double_t<Ar>(r, a);
+    } else { ld(b, q, i); jac_add_incomplete_t<Ar>(r, a, b); }
     st(o, i, r);
   }
+}
+extern "C" {
+// arith: 0 CiosArith (mont_mul / mont_sqr), 1 ChainArith (carry chains)
+void h_g1(int arith, int op, const u32* const* p, const u32* const* q,
+          u32* const* o, int n) {
+  if (arith == 0) g1_rows<CiosArith>(op, p, q, o, n);
+  else g1_rows<ChainArith>(op, p, q, o, n);
 }
 // B12's permutation on n states [n][3][8] in place
 void h_poseidon(u32* s, const u32* rc, const u32* mds, int n) {
@@ -146,6 +172,8 @@ def test_field_arithmetic_matches_plain(lib, spec):
             (lib.h_mul, (a, b), F.mul_plain(spec, a, b)),
             (lib.h_mul, (wide, b), F.mul_plain(spec, wide, b)),
             (lib.h_sqr, (a,), F.square_plain(spec, a)),
+            (lib.h_mul_cc, (a, b), F.mul_plain(spec, a, b)),
+            (lib.h_sqr_cc, (a,), F.square_plain(spec, a)),
             (lib.h_add, (a, b), F.add_plain(spec, a, b)),
             (lib.h_sub, (a, b), F.sub_plain(spec, a, b))):
         out = torch.empty_like(a)
@@ -161,8 +189,11 @@ def _jacobian(points):
         [bn.g1_coords(p) for p in half], device="cpu")))
 
 
-def test_g1_formulas_match_plain(lib):
-    """Rows: 0 p == q, 1 p == -q, 2 p = inf, 3 q = inf, 4 both inf."""
+@pytest.mark.parametrize("arith", [0, 1], ids=["cios", "carry_chain"])
+def test_g1_formulas_match_plain(lib, arith):
+    """Both arithmetic policies of g1.cuh's formulas (the C CIOS product of
+    B4, B6 and B8; the carry-chain product of B5 and B7, emulated on the
+    host). Rows: 0 p == q, 1 p == -q, 2 p = inf, 3 q = inf, 4 both inf."""
     rng = np.random.default_rng(52)
     ps = [bn.scalar_mul(bn.G1_GEN, int(rng.integers(1, 1 << 62)))
           for _ in range(12)]
@@ -179,8 +210,8 @@ def test_g1_formulas_match_plain(lib):
     for op, q, want in cases:
         out = [torch.empty_like(pj.x) for _ in range(3)]
         qc = [c.contiguous() for c in q]
-        lib.h_g1(op, _ptrs(pj), _ptrs(qc + qc[:3 - len(qc)]), _ptrs(out),
-                 len(ps))
+        lib.h_g1(arith, op, _ptrs(pj), _ptrs(qc + qc[:3 - len(qc)]),
+                 _ptrs(out), len(ps))
         assert all(torch.equal(o, w) for o, w in zip(out, want)), op
 
 

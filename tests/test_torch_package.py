@@ -204,9 +204,15 @@ def test_every_kernel_names_its_source_and_tpu_kernel():
 
 
 def test_ptxas_summary_parses_registers_and_spills():
-    log = ("ptxas info    : Compiling entry function '_Z6kernelPj' for 'sm_90a'\n"
+    """A noinline device function's own properties (its stack frame and
+    spills) are not taken for the entry's."""
+    log = ("ptxas info    : Function properties for _Z6helperv\n"
+           "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Compiling entry function '_Z6kernelPj' for 'sm_90a'\n"
            "ptxas info    : Function properties for _Z6kernelPj\n"
            "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Function properties for _Z7helper2v\n"
+           "    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
            "ptxas info    : Used 128 registers, used 0 barriers\n")
     lines = build.ptxas_summary(log)
     assert lines == ["_Z6kernelPj: 128 registers, 4 bytes spill stores"]
