@@ -1,6 +1,6 @@
 // BN254 G1 point formulas in Jacobian coordinates over Fq (a = 0), one point
 // per thread, shared by the G1 kernels (g1.cu) and the MSM bucket kernel
-// (msm_bucket.cu).
+// (msm_bucket.cuh, msm_bucket.cu).
 //
 // The formulas and edge cases are those of co_zkvms_tpu/ops/curve_pallas.py
 // (_double_limbs :41, _add_mixed_kernel :57, _add_kernel :116,
@@ -15,8 +15,8 @@
 //
 // The formulas are templates on the arithmetic policy of their Fq products
 // and squares: CiosArith (field.cuh's mont_mul / mont_sqr in C, the default
-// of the untemplated names, used by B4, B6 and B8) or ChainArith (field.cuh's
-// carry-chain product, used by B5 and B7). Both give the same canonical
+// of the untemplated names, used by B4 and B6) or ChainArith (field.cuh's
+// carry-chain product, used by B5, B7 and B8). Both give the same canonical
 // values, so a formula's output does not depend on the policy.
 #pragma once
 #include "field.cuh"
@@ -251,7 +251,7 @@ FDEV void jac_add_incomplete_t(Jac& o, const Jac& p, const Jac& q) {
   jac_add_finish<Ar>(o, u1, s1, h, r, zz);
 }
 
-// The untemplated names keep mont_mul / mont_sqr (B4, B6, B8).
+// The untemplated names keep mont_mul / mont_sqr (B4, B6).
 FDEV void jac_double(Jac& o, const Jac& p) { jac_double_t<CiosArith>(o, p); }
 FDEV void jac_add_mixed(Jac& o, const Jac& p, const uint32_t qx[8],
                         const uint32_t qy[8]) {

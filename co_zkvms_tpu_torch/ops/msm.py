@@ -3,9 +3,12 @@
 Per window of c bits, the point indices are sorted by digit (``torch.sort``,
 glue, as ``lax.sort`` is outside the TPU kernel), so every bucket is a
 contiguous run; ``bucket_accumulate`` (kernel B8, ``ops/csrc/msm_bucket.cu``)
-sums each run with the complete mixed add. The top window, which holds only
-254 mod c bits, is first spread over all 2^c buckets by point group and
-folded back with complete adds (``_top_regroup``, as in the JAX package).
+sums each run with the complete mixed add, one thread a fixed run of
+``BUCKET_RUN`` sorted points whatever the bucket sizes, the pieces of a
+bucket cut by a run's edge folded by merge passes. The top window, which
+holds only 254 mod c bits, is first spread over all 2^c buckets by point
+group and folded back with complete adds (``_top_regroup``, as in the JAX
+package).
 The weighted bucket sum sum_b b * S_b runs on the device with the JAX
 package's digit split: two marginal trees of incomplete adds (B7), two
 double suffix scans (B7 then the complete add B5, because the second scan
@@ -15,8 +18,8 @@ combines them, as in the JAX package's ``_horner_affine_ints``.
 
 Small-valued scalars (0/1 tables, counter polynomials) take the JAX
 package's by-value path instead (``_by_value_sums``): Pippenger's bucket
-occupancy equals a value's multiplicity there, so one B8 thread would walk
-a run of most of the points. The points are grouped by value first, a
+occupancy equals a value's multiplicity there, so a few buckets would hold
+most of the points. The points are grouped by value first, a
 segmented sum in ceil(log2 N) full-width incomplete adds (B7), and the
 window path then runs over the at most ``u_bound`` group sums, whose
 values are distinct. ``by_value_gate`` holds the reference's condition.
@@ -99,53 +102,201 @@ def sort_windows(digits: torch.Tensor, c: int):
 # B8: bucket accumulation
 # ---------------------------------------------------------------------------
 
+# T: the sorted positions (pass 1) or carries (merge passes) that one B8
+# thread folds; the fastest of BUCKET_RUNS on the H100 at every shape
+# chip_smoke.py times (PERF.md)
+BUCKET_RUN = 16
+BUCKET_RUNS = (16, 32, 64)
+
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 MSM_BUCKET = build.KernelFn(
-    "msm_bucket_accumulate", "msm_bucket", "msm_bucket_accumulate",
-    [_P] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P],
+    "msm_bucket_accumulate", "msm_bucket", "msm_bucket_pass",
+    [_P] * 11 + [_I, _I, ctypes.c_longlong, _I, _I, _I, _P],
     replaces="co_zkvms_tpu/ops/curve_pallas.py:320")
 
 
-def bucket_accumulate_plain(points: APoint, order, starts) -> JPoint:
-    """Plain version of B8: bucket (w, b) = the sum, in run order, of the
-    points of its run, folded with the complete mixed add from infinity.
-    Step t adds the t-th point of every bucket that has one."""
-    nw, nb = starts.shape[0], starts.shape[1] - 1
-    device = points.x.device
-    begin = starts[:, :-1].to(torch.int64)
-    count = (starts[:, 1:] - starts[:, :-1]).to(torch.int64)
-    count[:, 0] = 0                      # bucket 0 never accumulates
-    begin, count = begin.reshape(-1), count.reshape(-1)
-    window = torch.arange(nw, device=device).repeat_interleave(nb)
-    acc = C.infinity((nw * nb,), device)
-    steps = int(count.max()) if count.numel() else 0
+def bucket_passes(n: int, run: int) -> list:
+    """Input length, per window, of each pass of B8: [n, L1, L2, ...].
+
+    Pass 1 cuts a window's n sorted positions into chunks of ``run``; each
+    chunk leaves two carry slots, so the next pass takes 2 ceil(L / run)
+    entries. The pass whose input fits in one chunk (L <= run) is the last.
+    The lists shrink only for run >= 4."""
+    if run < 4:
+        raise ValueError(f"B8 folds runs of at least 4, got {run}")
+    lens = [n]
+    while lens[-1] > run:
+        lens.append(2 * -(-lens[-1] // run))
+    return lens
+
+
+def _walk_plain(keys, point_at, add, out: JPoint, final: bool):
+    """One pass of B8's schedule for every chunk at once: the walk of
+    ``ops/csrc/msm_bucket.cuh`` (``walk_points`` / ``walk_carries``), step
+    t taking the t-th entry of each chunk.
+
+    ``keys``: int64 [R, S], the bucket key of each entry of R chunks (-1:
+    skipped); ``point_at(t)``: the entries' points at step t; ``add(acc,
+    q)``: the pass's complete add; ``out``: the bucket sums, coordinates
+    [nw nb, 8], written in place. Returns the chunks' carry slots (keys
+    [R, 2], JPoint [R, 2]), or None for the final pass."""
+    rows, steps = keys.shape
+    dev = keys.device
+    inf = C.infinity((rows,), dev)
+    acc = inf
+    cur = torch.full((rows,), -1, dtype=torch.int64, device=dev)
+    closed = torch.zeros(rows, dtype=torch.bool, device=dev)  # one so far
+    ckey = torch.full((rows, 2), -1, dtype=torch.int64, device=dev)
+    cpts = C.infinity((rows, 2), dev)
+
+    def direct(mask):
+        for dst, src in zip(out, acc):
+            dst[cur[mask]] = src[mask]
+
+    def slot(mask, s):
+        ckey[mask, s] = cur[mask]
+        for dst, src in zip(cpts, acc):
+            dst[mask, s] = src[mask]
+
     for t in range(steps):
-        live = torch.nonzero(count > t).squeeze(1)
-        idx = order[window[live], begin[live] + t].to(torch.int64)
-        new = C.add_mixed_plain(C.index(acc, live),
-                                APoint(points.x[idx], points.y[idx]))
-        for dst, src in zip(acc, new):
-            dst[live] = src
-    return JPoint(*(c.reshape(nw, nb, F.NLIMBS) for c in acc))
+        k = keys[:, t]
+        valid = k >= 0
+        new = valid & (k != cur)
+        ends = new & (cur >= 0)              # a segment closes before t
+        if final:
+            direct(ends)
+        else:
+            direct(ends & closed)
+            slot(ends & ~closed, 0)
+        closed |= ends
+        acc = C.select(new, inf, acc)
+        cur = torch.where(valid, k, cur)
+        acc = C.select(valid, add(acc, point_at(t)), acc)
+    live = cur >= 0
+    if final:
+        direct(live)
+        return None
+    slot(live & ~closed, 0)
+    slot(live & closed, 1)
+    return ckey, cpts
+
+
+def _chunk_positions(length: int, run: int, device):
+    """Entry index of each step of each chunk, [chunks, S] with S = min(run,
+    length), and the mask of those below ``length``."""
+    chunks = -(-length // run)
+    steps = min(run, length)
+    pos = (torch.arange(chunks, device=device)[:, None] * run +
+           torch.arange(steps, device=device)[None, :])
+    return pos, pos < length
+
+
+def _points_pass_plain(points: APoint, order, starts, run, out, final):
+    """Pass 1 of B8 over the sorted points of every window."""
+    nw, n = order.shape
+    nb = starts.shape[1] - 1
+    dev = order.device
+    pos, inside = _chunk_positions(n, run, dev)
+    chunks, steps = pos.shape
+    pos = pos.reshape(-1).clamp(max=n - 1)
+    inside = inside.reshape(-1)
+    bounds = starts.to(torch.int64)
+    bucket = torch.searchsorted(bounds, pos.expand(nw, -1).contiguous(),
+                                right=True) - 1
+    valid = inside[None] & (pos[None] >= bounds[:, 1:2])   # digit 0 dropped
+    base = torch.arange(nw, device=dev)[:, None] * nb
+    keys = torch.where(valid, base + bucket, -1).reshape(nw * chunks, steps)
+    idx = order.to(torch.int64)[:, pos].reshape(nw * chunks, steps)
+    return _walk_plain(keys, lambda t: APoint(points.x[idx[:, t]],
+                                              points.y[idx[:, t]]),
+                       C.add_mixed_plain, out, final)
+
+
+def _merge_pass_plain(ckey, cpts: JPoint, run, out, final):
+    """A merge pass of B8 over carry lists (keys [nw, L], JPoint [nw, L])."""
+    nw, length = ckey.shape
+    pos, inside = _chunk_positions(length, run, ckey.device)
+    chunks, steps = pos.shape
+    pos, inside = pos.reshape(-1).clamp(max=length - 1), inside.reshape(-1)
+    keys = torch.where(inside[None], ckey[:, pos], -1)
+    keys = keys.reshape(nw * chunks, steps)
+    pts = JPoint(*(c[:, pos].reshape(nw * chunks, steps, F.NLIMBS)
+                   for c in cpts))
+    # the entry is the first operand (msm_bucket.cuh walk_carries)
+    return _walk_plain(keys, lambda t: C.index(pts, (slice(None), t)),
+                       lambda acc, e: C.add_plain(e, acc), out, final)
+
+
+def bucket_accumulate_plain(points: APoint, order, starts,
+                            run: int | None = None) -> JPoint:
+    """Plain version of B8, on the kernel's schedule: the same chunks of
+    ``run`` entries (None: the kernel's ``BUCKET_RUN``), the same carries
+    and the same merge passes (``bucket_passes``), each pass vectorised
+    over its chunks, so that the kernel's Jacobian coordinates equal these
+    bit for bit. Bucket (w, b) is the sum of order[w, starts[w, b]:
+    starts[w, b + 1]]; bucket 0 and empty buckets are infinity."""
+    run = BUCKET_RUN if run is None else run
+    nw, nb = starts.shape[0], starts.shape[1] - 1
+    n = order.shape[1]
+    lens = bucket_passes(n, run)
+    out = C.infinity((nw * nb,), points.x.device)
+    if n:
+        carries = _points_pass_plain(points, order, starts, run, out,
+                                     len(lens) == 1)
+        for k in range(1, len(lens)):
+            ckey, cpts = carries
+            carries = _merge_pass_plain(
+                ckey.reshape(nw, lens[k]),
+                JPoint(*(c.reshape(nw, lens[k], F.NLIMBS) for c in cpts)),
+                run, out, k == len(lens) - 1)
+    return JPoint(*(c.reshape(nw, nb, F.NLIMBS) for c in out))
 
 
 def bucket_accumulate(points: APoint, order, starts) -> JPoint:
-    """Bucket sums [nw, nb] for sorted windows (kernel B8 on cuda)."""
+    """Bucket sums [nw, nb] for sorted windows (kernel B8 on cuda, in
+    ``len(bucket_passes(N, BUCKET_RUN))`` launches)."""
     if F.on_cpu(points.x, points.y, order, starts):
         return bucket_accumulate_plain(points, order, starts)
+    return bucket_accumulate_run(points, order, starts, BUCKET_RUN)
+
+
+def bucket_accumulate_run(points: APoint, order, starts, run: int) -> JPoint:
+    """B8 on cuda tensors with a run of ``run`` (one of BUCKET_RUNS): one
+    launch a pass of ``bucket_passes``. The carry lists live in two
+    scratch buffers that the passes use in turn."""
+    if run not in BUCKET_RUNS:
+        raise ValueError(f"B8 runs are {BUCKET_RUNS}, got {run}")
     nw, nb = starts.shape[0], starts.shape[1] - 1
     n = order.shape[1]
     for t, dt in ((points.x, torch.int32), (points.y, torch.int32),
                   (order, torch.int32), (starts, torch.int32)):
         if t.dtype != dt or not t.is_contiguous():
             raise TypeError("bucket_accumulate takes contiguous int32 tensors")
+        if t.device.type != "cuda":
+            raise ValueError("bucket_accumulate_run takes cuda tensors")
     if points.x.shape != (n, F.NLIMBS) or points.y.shape != (n, F.NLIMBS):
         raise ValueError("points and order disagree on N")
-    out = [torch.empty((nw, nb, F.NLIMBS), dtype=torch.int32,
-                       device=points.x.device) for _ in range(3)]
-    MSM_BUCKET(points.x.data_ptr(), points.y.data_ptr(), order.data_ptr(),
-               starts.data_ptr(), *(o.data_ptr() for o in out), nw, nb, n,
-               build.stream_ptr(points.x.device))
+    dev = points.x.device
+    out = [torch.empty((nw, nb, F.NLIMBS), dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    lens = bucket_passes(n, run)
+    # carries of pass k go to buffer k % 2: the largest lists are L1, L2
+    bufs = [(torch.empty((nw * size,), dtype=torch.int32, device=dev),
+             torch.empty((nw * size, 24), dtype=torch.int32, device=dev))
+            for size in lens[1:3]]
+    null = None
+    for k, length in enumerate(lens):
+        final = k == len(lens) - 1
+        src = bufs[(k - 1) % 2] if k else (null, null)
+        dst = (null, null) if final else bufs[k % 2]
+        MSM_BUCKET(points.x.data_ptr(), points.y.data_ptr(),
+                   order.data_ptr(), starts.data_ptr(),
+                   *(null if t is None else t.data_ptr() for t in src),
+                   *(o.data_ptr() for o in out),
+                   *(null if t is None else t.data_ptr() for t in dst),
+                   nw, nb, length, run, int(k > 0), int(final),
+                   build.stream_ptr(dev))
     return JPoint(*out)
 
 
@@ -257,7 +408,8 @@ def _top_regroup(digits: torch.Tensor, c: int):
 
     254 bits leave the top window only 254 - (nw - 1) c bits (2 at c = 12
     or 14), so its few buckets would each hold a large share of all points
-    and one thread would walk each of them serially. As the JAX package's
+    (B8 then folds them in merge passes; PERF.md times the opening shape
+    with and without this regroup). As the JAX package's
     ``_top_regroup``: point i of group g = i // (n / k) puts top digit d in
     bucket g * nb_top + d (d = 0 stays 0). Returns (digits, k, nb_top)."""
     nw, n = digits.shape

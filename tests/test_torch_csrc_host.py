@@ -1,13 +1,13 @@
 """The CUDA kernels' own arithmetic, compiled as host C++.
 
-ops/csrc/field.cuh, g1.cuh and poseidon.cuh compile with a host compiler
-too (FDEV -> inline). This test builds a small harness over them with g++
-and holds the kernels' Montgomery products (the C CIOS form, and the
-carry-chain form of B5 and B7 with each PTX step emulated on C integers),
-modular add/sub and G1 formulas under both arithmetic policies to the
-port's plain PyTorch versions bit for bit, edge rows included, and B12's
-t = 3 Poseidon permutation to the host mirror ``host_permute``. No nvcc
-is needed; without g++ the test skips.
+ops/csrc/field.cuh, g1.cuh, msm_bucket.cuh and poseidon.cuh compile with a
+host compiler too (FDEV -> inline). This test builds a small harness over
+them with g++ and holds the kernels' Montgomery products (the C CIOS form,
+and the carry-chain form of B5, B7 and B8 with each PTX step emulated on C
+integers), modular add/sub, G1 formulas and B8's chunk walks under both
+arithmetic policies to the port's plain PyTorch versions bit for bit, edge
+rows included, and B12's t = 3 Poseidon permutation to the host mirror
+``host_permute``. No nvcc is needed; without g++ the test skips.
 """
 
 import ctypes
@@ -41,7 +41,9 @@ def _port_loaded():
 
 
 HARNESS = r"""
+#include <algorithm>
 #include "g1.cuh"
+#include "msm_bucket.cuh"
 #include "poseidon.cuh"
 using namespace bn254;
 typedef uint32_t u32;
@@ -115,6 +117,84 @@ void h_g1(int arith, int op, const u32* const* p, const u32* const* q,
   if (arith == 0) g1_rows<CiosArith>(op, p, q, o, n);
   else g1_rows<ChainArith>(op, p, q, o, n);
 }
+}  // extern "C"
+// B8's chunk walks on the host read each point straight from memory and
+// double inline where the merge add meets p == q (the kernel stages points
+// through shared memory and doubles out of line).
+struct DirectPoints {
+  const u32* px;
+  const u32* py;
+  const int32_t* order_w;
+  void start(int, int) {}
+  void get(int p, u32 qx[8], u32 qy[8]) const {
+    const long long i = order_w[p];
+    fe_copy(qx, px + 8 * i);
+    fe_copy(qy, py + 8 * i);
+  }
+};
+struct InlineDouble {
+  template <class Ar>
+  static void apply(Jac& acc, u32* e) {
+    jac_double_t<Ar>(acc, *reinterpret_cast<const Jac*>(e));
+  }
+};
+// B8's schedule on the host: the infinity of bucket 0 and of the empty
+// buckets, then pass 1 and the merge passes (input lengths `lens`, as
+// ops/msm.py bucket_passes), every chunk in turn through msm_bucket.cuh's
+// chunk walks; the carries of pass k go to buffer k % 2.
+template <class Ar>
+static void bucket_rows(const u32* px, const u32* py, const int32_t* order,
+                        const int32_t* starts, int nw, int nb, int run,
+                        const int* lens, int passes, u32* const* out,
+                        int32_t* const* keys, u32* const* pts) {
+  Jac inf;
+  jac_infinity(inf);
+  for (long long i = 0; i < (long long)nw * nb; i++) {
+    const int b = (int)(i % nb);
+    const long long s = (i / nb) * (nb + 1) + b;
+    if (b == 0 || starts[s] == starts[s + 1]) {
+      fe_copy(out[0] + 8 * i, inf.x); fe_copy(out[1] + 8 * i, inf.y);
+      fe_copy(out[2] + 8 * i, inf.z);
+    }
+  }
+  for (int k = 0; k < passes; k++) {
+    const int len = lens[k];
+    const bool final = k == passes - 1;
+    const int chunks = (len + run - 1) / run;
+    for (int w = 0; w < nw; w++) {
+      for (int j = 0; j < chunks; j++) {
+        SegmentSink sink{out[0], out[1], out[2], keys[k % 2], pts[k % 2],
+                         2 * ((long long)w * chunks + j), final, 0};
+        const int hi = std::min(j * run + run, len);
+        if (k == 0) {
+          const int32_t* sw = starts + (long long)w * (nb + 1);
+          DirectPoints src{px, py, order + (long long)w * len};
+          walk_points<Ar>(src, sw, nb, w * nb, std::max(j * run, sw[1]), hi,
+                          sink);
+        } else {
+          const long long row = (long long)w * len;
+          walk_carries<Ar, InlineDouble>(keys[(k - 1) % 2] + row,
+                                         pts[(k - 1) % 2] + 24 * row, j * run,
+                                         hi, sink);
+        }
+      }
+    }
+  }
+}
+extern "C" void h_bucket(int arith, const u32* px, const u32* py,
+                         const int32_t* order, const int32_t* starts, int nw,
+                         int nb, int run, const int* lens, int passes,
+                         u32* const* out, int32_t* const* keys,
+                         u32* const* pts) {
+  if (arith == 0) {
+    bucket_rows<CiosArith>(px, py, order, starts, nw, nb, run, lens, passes,
+                           out, keys, pts);
+  } else {
+    bucket_rows<ChainArith>(px, py, order, starts, nw, nb, run, lens, passes,
+                            out, keys, pts);
+  }
+}
+extern "C" {
 // B12's permutation on n states [n][3][8] in place
 void h_poseidon(u32* s, const u32* rc, const u32* mds, int n) {
   for (int i = 0; i < n; i++) {
@@ -228,3 +308,47 @@ def test_poseidon_permutation_matches_host_mirror(lib):
     lib.h_poseidon(_ptr(s), _ptr(rc), _ptr(mds), len(states))
     got = F.to_int(F.FR, s).tolist()
     assert got == [P.host_permute(st) for st in states]
+
+
+@pytest.fixture(scope="module")
+def bucket_inputs():
+    """The edge-case digit tables of test_torch_msm_bucket.py, sorted, and
+    the plain schedule's buckets for distinct and for repeated points at
+    T = 4 (four merge passes) and at the kernel's T = 16."""
+    import test_torch_msm_bucket as cases
+    from co_zkvms_tpu_torch.ops import msm as M
+
+    cases._port()
+    order, starts = M.sort_windows(torch.from_numpy(cases.bucket_cases()),
+                                   cases.C_CASE)
+    runs = []
+    for kind in ("distinct", "repeated"):
+        pts, _ = cases.case_points(kind)
+        for run in (4, 16):
+            runs.append((kind, run, pts,
+                         M.bucket_accumulate_plain(pts, order, starts, run)))
+    return order, starts, runs
+
+
+@pytest.mark.parametrize("arith", [0, 1], ids=["cios", "carry_chain"])
+def test_bucket_schedule_matches_plain(lib, bucket_inputs, arith):
+    """B8's chunk walks (msm_bucket.cuh walk_points / walk_carries) on the
+    host, chunk after chunk and pass after pass, against the plain
+    schedule bit for bit (Jacobian coordinates)."""
+    from co_zkvms_tpu_torch.ops import msm as M
+
+    order, starts, runs = bucket_inputs
+    nw, nb = starts.shape[0], starts.shape[1] - 1
+    for kind, run, pts, want in runs:
+        lens = M.bucket_passes(order.shape[1], run)
+        out = [torch.empty((nw * nb, 8), dtype=torch.int32) for _ in range(3)]
+        keys = [torch.empty(nw * size, dtype=torch.int32)
+                for size in (lens[1:3] + [1, 1])[:2]]
+        carry = [torch.empty((k.numel(), 24), dtype=torch.int32) for k in keys]
+        lib.h_bucket(arith, _ptr(pts.x), _ptr(pts.y), _ptr(order),
+                     _ptr(starts), nw, nb, run,
+                     (ctypes.c_int * len(lens))(*lens), len(lens),
+                     _ptrs(out), _ptrs(keys + keys[:1]),
+                     _ptrs(carry + carry[:1]))
+        assert all(torch.equal(o.reshape(nw, nb, 8), w)
+                   for o, w in zip(out, want)), (kind, run)
