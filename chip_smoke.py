@@ -16,7 +16,11 @@ before its last line:
               beside its bound and the plain version's time. B5 and B7 also
               at the main path's small sizes: bit-exact at 4,096 points,
               timed at 4,096 and 2,432 points with blocks of 32, 64 and 128
-              threads; B4-B8 report their ptxas registers and spill stores.
+              threads; B6 with 1, 7 and 8 doublings a launch at the paths'
+              shapes (16 and 19 window sums, 2^10 points, 2^16), each
+              bit-exact; B4-B8 report their ptxas registers and spill stores.
+              B12 on 2^(nv-2) states with each S-box square (sqr_cc,
+              mont_sqr), both bit-exact with permute.
               B8 on three window sets (uniform scalars on 2^nv points,
               row-like scalars on 2^(nv+1), one scalar for all 2^nv), each
               bit-exact on two windows and timed over all its passes at
@@ -54,7 +58,8 @@ before its last line:
               of the prove. The proof must equal the slice's. Then the same
               for slice 2's prove_rep3 by its co_spartan.<phase> ranges,
               and slice 2's DFS build_index (wall, device busy time, its
-              kernels by device time; the same commitments).
+              kernels by device time, B8's and B6's device time and
+              launches; the same commitments).
   7. slice4   the primitives off the prover path, at the JAX package's
               bench.py shapes (nv = 20): hash2 over 2^18 pairs (B12), a
               Merkle root over 2^20 leaves by merkle_layer, the Poseidon
@@ -65,7 +70,9 @@ before its last line:
               must be > 0 for B12, B1, B3, B5, B6 and B8. Then the checks:
               B12 against its plain version on 2^16 states and against the
               t = 3 composition over the field kernels on the 2^18 hash
-              states (bit for bit), hash and Merkle nodes against host_hash,
+              states (bit for bit), with its bounds for the sparse and the
+              dense schedule and its registers; hash and Merkle nodes
+              against host_hash,
               the transcript against its host mirror, t = 4/5 against
               host_permute, intt(ntt(x)) == x, a 2^10 NTT against a host
               DFT, and every reconstruction against its secret.
@@ -149,13 +156,14 @@ def main() -> int:
     for line in regs:
         log(f"[build]   {line}")
 
+    check_register_budget(regs)
     records, b12_ms = kernel_phase(torch, dev, args.nv, regs)
     r1cs, srs, z, proof, index = slice_phase(torch, dev, args, records)
     rep3 = slice2_phase(torch, dev, args, r1cs, z, index, records)
     profile_phase(torch, dev, r1cs, srs, z, proof)
     profile_rep3_phase(torch, dev, index, z, args.seed, *rep3)
     profile_index_phase(torch, r1cs, *rep3[:2])
-    slice4_phase(torch, dev, args, records, b12_ms)
+    slice4_phase(torch, dev, args, records, b12_ms, regs)
 
     print(json.dumps({"kernels": records}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; "
@@ -385,6 +393,7 @@ def kernel_phase(torch, dev, nv: int, regs: list) -> tuple:
             f"{records[-1]['registers']} registers, "
             f"{records[-1]['spill_stores']} bytes spill stores")
     small_g1_launches(torch, C, p, q, records, jadd, pre_j, dbl)
+    double_shapes(torch, C, p, records, dbl)
 
     bucket_kernel(torch, dev, gen, nv, regs, records, rand_points, madd)
     sumcheck_kernels(torch, dev, gen, nv, records)
@@ -505,20 +514,33 @@ ENTRIES = {"fp_mul": ("binary_kernel<0,0>",),
                ("eval_kernel<0,(anonymousnamespace)::InnerComb>",),
            "sc_reduce_partials": ("reduce_kernel<0>",),
            "sc_bind_round": ("bind_kernel<0>",),
-           "poseidon_permute_t3": ("poseidon_t3_kernel",)}
+           # B12 by its S-box square: <0> sqr_cc, <1> mont_sqr
+           "poseidon_permute_t3": ("poseidon_t3_kernel<0>",
+                                   "poseidon_t3_kernel<1>")}
+
+
+def mangled(entry: str):
+    """How a mangled name spells an entry: <len><name>E, or with integer
+    template arguments <len><name>ILi<a>E...E; None for other templates."""
+    base, _, args = entry.partition("<")
+    if not args:
+        return f"{len(base)}{base}E"
+    vals = args.rstrip(">").split(",")
+    if not all(v.isdigit() for v in vals):
+        return None
+    return f"{len(base)}{base}I" + "".join(f"Li{v}E" for v in vals) + "E"
 
 
 def registers_of(regs: list, name: str) -> dict:
     """{"registers": n, "spill_stores": bytes} of a kernel (the most over
     its device functions, each also under "by_entry") from the ptxas
-    summary lines (mangled names hold an entry as <len><name>E); {} for a
-    kernel whose entries are templates."""
+    summary lines; {} for a kernel whose entries are templates on types."""
     entries = ENTRIES[name]
-    if any("<" in e for e in entries):
+    if any(mangled(e) is None for e in entries):
         return {}
     by_entry = {}
     for entry in entries:
-        token = f"{len(entry)}{entry}E"
+        token = mangled(entry)
         for line in regs:
             if token in line.split(":")[0]:
                 counts = line.split(":")[1].split(",")
@@ -533,6 +555,22 @@ def registers_of(regs: list, name: str) -> dict:
         rec["by_entry"] = {e: {"registers": r, "spill_stores": sp}
                            for e, (r, sp) in by_entry.items()}
     return rec
+
+
+# kernels built to at most 128 registers with no spill stores (four blocks
+# of 128 threads an SM)
+BUDGETED = ("g1_add", "g1_double", "g1_add_incomplete",
+            "msm_bucket_accumulate", "poseidon_permute_t3")
+
+
+def check_register_budget(regs: list) -> None:
+    for name in BUDGETED:
+        rec = registers_of(regs, name)
+        if rec["registers"] > 128 or rec["spill_stores"]:
+            raise AssertionError(f"{name} over its budget of 128 registers "
+                                 f"and no spills: {rec}")
+    log(f"[build] {', '.join(BUDGETED)}: each at most 128 registers, "
+        f"0 bytes spill stores")
 
 
 # the small launches of the main path: the weighted bucket sums of a c = 16
@@ -572,6 +610,41 @@ def small_g1_launches(torch, C, p, q, records, jadd, pre_j, dbl) -> None:
                 f"; chosen {chosen}; bound {b_ms:.4f} ms")
         rec["small_shapes"] = sizes
         assert rec["name"] == kfn.name
+
+
+# B6 on the paths: [nw] window sums doubled lbits = c // 2 times in one
+# launch (c = 16: 16 windows, 8 doublings; an opening MSM's c = 14: 19
+# windows, 7), 2^10 points doubled once between adds (Shamir's
+# scalar_mul_public), and 2^16 points
+DOUBLE_SHAPES = ((16, (1, 7, 8)), (19, (7,)), (1024, (1,)),
+                 (1 << 16, (1, 7, 8)))
+
+
+def double_shapes(torch, C, p, records, dbl) -> None:
+    """B6 with `times` doublings a launch at the paths' shapes, bit-exact
+    against double_plain (the first rows of the 2^16 case: p = inf at rows
+    2 and 4) and timed by device events."""
+    rec = next(r for r in records if r["name"] == C.G1_DOUBLE.name)
+    shapes = {}
+    for n, counts in DOUBLE_SHAPES:
+        n = min(n, p.x.shape[0])                 # --nv below 20
+        pts = C.index(p, slice(0, n))
+        for times in counts:
+            got = C.double(pts, times=times)
+            want, pms = timed(torch, lambda: C.double_plain(pts, times))
+            if not same(torch, tuple(got), tuple(want)):
+                raise AssertionError(f"g1_double {n} points x {times}: "
+                                     "kernel != plain")
+            ms = kernel_ms(torch, lambda: C.double(pts, times=times), 20,
+                           ENTRIES[C.G1_DOUBLE.name])
+            b_ms, b_by = bound(6 * ELEM * n, n * times * dbl)
+            shapes[f"{n}x{times}"] = {"points": n, "times": times, "ms": ms,
+                                      "plain_ms": pms, "bound_ms": b_ms,
+                                      "bound_by": b_by}
+            log(f"[kernels] g1_double {n} points, times={times}: bit-exact; "
+                f"device {ms:.4f} ms a launch (plain {pms:.2f} ms), bound "
+                f"{b_ms:.5f} ms ({b_by})")
+    rec["shapes"] = shapes
 
 
 def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
@@ -662,16 +735,30 @@ def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
 OFF_PROVER = ("poseidon_permute_t3",)
 
 
-def poseidon_ms(torch, dev, gen, nv: int) -> float:
-    """B12's device time a launch on 2^(nv-2) t = 3 states (slice 4 checks
-    it against its plain version)."""
+def poseidon_ms(torch, dev, gen, nv: int) -> dict:
+    """B12's device time a launch on 2^(nv-2) t = 3 states with each S-box
+    square ({square: ms}); the square that permute does not take must give
+    its output bit for bit (slice 4 checks permute against the plain
+    version and the composition over B1-B3)."""
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import poseidon as P
 
     n = 1 << (nv - 2)
     state = F.to_mont(F.FR, random_fe(torch, gen, 3 * n, dev)).reshape(n, 3, 8)
-    return kernel_ms(torch, lambda: P.permute(state), 10,
-                     ENTRIES[P.POSEIDON_T3.name])
+    want = P.permute(state)
+    times = {}
+    for square, k in P.T3_SQUARES.items():
+        got = P._launch_t3(state, square)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B12 with the {square} square != permute")
+        times[square] = kernel_ms(
+            torch, lambda square=square: P._launch_t3(state, square), 10,
+            (f"poseidon_t3_kernel<{k}>",))
+    log(f"[kernels] poseidon_permute_t3 2^{nv - 2} states, both S-box "
+        f"squares bit-exact with permute ({P.T3_SQUARE}); device " +
+        ", ".join(f"{sq} {ms:.3f} ms" for sq, ms in times.items()))
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -979,9 +1066,12 @@ def profile_rep3_phase(torch, dev, index, z, seed, srs, dfs, params,
 # phase 7: Poseidon (B12), the NTT, Shamir and Rep3 point shares
 # ---------------------------------------------------------------------------
 
-# B12 per state: 666 Montgomery products and 162 squares (x^5 is square,
-# square, multiply; 65 rounds of a 3 x 3 MDS product)
-POSEIDON_T3_OPS = 666 * MUL_OPS + 162 * SQR_OPS
+# B12 per state, with sparse partial rounds (the least work known for the
+# function): 438 Montgomery products and 162 squares (x^5 is square, square,
+# multiply; 8 full rounds of a 3 x 3 product, 57 partial rounds of 5
+# products). The dense schedule, 65 rounds of a 3 x 3 product: 666 and 162.
+POSEIDON_T3_OPS = 438 * MUL_OPS + 162 * SQR_OPS
+POSEIDON_T3_DENSE_OPS = 666 * MUL_OPS + 162 * SQR_OPS
 
 
 def timed(torch, fn):
@@ -995,7 +1085,7 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def slice4_phase(torch, dev, args, records, b12_ms: float) -> None:
+def slice4_phase(torch, dev, args, records, b12_ms: dict, regs) -> None:
     from co_zkvms_tpu_torch.ops import curve as C
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import msm as M
@@ -1105,20 +1195,24 @@ def slice4_phase(torch, dev, args, records, b12_ms: float) -> None:
     check(torch.equal(full[:, 1], hashes), "hash2 != permute(state)[1]")
     composed, composed_ms = timed(torch, lambda: P.permute_composed(state))
     check(torch.equal(full, composed), "B12 != the B1-B3 composition")
-    ms = b12_ms
+    ms = b12_ms[P.T3_SQUARE]
     ms_events = cuda_ms(torch, lambda: P.permute(state), 10)
     hash_ms = cuda_ms(torch, lambda: P.hash2(a, b), 10)
     idx = torch.randint(0, n_hash, (64,), generator=gen).tolist()
     ia, ib, ih = (F.to_int(FR, x[idx]).tolist() for x in (a, b, hashes))
     check(all(P.host_hash([x, y]) == h for x, y, h in zip(ia, ib, ih)),
           "hash2 != host_hash on 64 samples")
+    nbytes = 2 * 3 * ELEM * n_hash + P.t3_constant_words().nbytes
     rec = record(P.POSEIDON_T3, "co_zkvms_tpu_torch/ops/csrc/poseidon.cu",
-                 ms, plain_ms, 2 * 3 * ELEM * n_hash + (195 + 9) * ELEM,
-                 POSEIDON_T3_OPS * n_hash,
+                 ms, plain_ms, nbytes, POSEIDON_T3_OPS * n_hash,
                  note=f"plain_ms on 2^{nv - 4} states; ms on 2^{nv - 2}")
     rec["launches"] = rec["launches_slice4"] = launches[P.POSEIDON_T3.name]
     rec["launches_of"] = "slice4"
     rec["ms_events"] = ms_events
+    rec["square"] = P.T3_SQUARE
+    rec["ms_by_square"] = b12_ms
+    rec["bound_dense_ms"], _ = bound(nbytes, POSEIDON_T3_DENSE_OPS * n_hash)
+    rec.update(registers_of(regs, P.POSEIDON_T3.name))
     records.append(rec)
 
     # Merkle: every node of the top 10 levels, 8 of each lower level
@@ -1178,11 +1272,15 @@ def slice4_phase(torch, dev, args, records, b12_ms: float) -> None:
         f"B1-B3 on 2^{nv - 2} states ({composed_ms:.1f} ms); 64 hash2 "
         f"samples == host_hash")
     log(f"[slice4] hash2 over 2^{nv - 2} pairs: {hash_ms:.3f} ms, "
-        f"{n_hash / (hash_ms / 1e3):,.0f} hashes/s; B12 device {ms:.3f} ms (kernel phase) "
-        f"a launch (CUDA events {ms_events:.3f} ms; plain {plain_ms:.1f} ms "
-        f"on 2^{nv - 4}), bound "
-        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
-        f"{100 * rec['bound_ms'] / ms:.1f} % of it")
+        f"{n_hash / (hash_ms / 1e3):,.0f} hashes/s; B12 device {ms:.3f} ms "
+        f"a launch with the {P.T3_SQUARE} square (kernel phase; " +
+        ", ".join(f"{sq} {t:.3f}" for sq, t in b12_ms.items()) +
+        f"; CUDA events {ms_events:.3f} ms; plain {plain_ms:.1f} ms "
+        f"on 2^{nv - 4}), bound {rec['bound_ms']:.4f} ms sparse "
+        f"({rec['bound_by']}), {100 * rec['bound_ms'] / ms:.1f} % of it; "
+        f"dense schedule's bound {rec['bound_dense_ms']:.4f} ms; "
+        f"{rec['registers']} registers, {rec['spill_stores']} bytes spill "
+        f"stores ({rec.get('by_entry')})")
     log(f"[slice4] Merkle root over 2^{nv} leaves: {len(levels) - 1} "
         f"merkle_layer calls, {n_leaves - 1} hashes in "
         f"{wall['merkle']:.3f} s; {n_checked} nodes == host_hash")
@@ -1247,11 +1345,12 @@ def report_device_work(events, tag: str) -> None:
     for key, (us, cnt) in ranked[8:]:
         if any(is_entry(key, ENTRIES[k]) for k in G1_AND_B8):
             log(f"[{tag}]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
-    b8 = [v for key, v in per_kernel.items()
-          if is_entry(key, ENTRIES["msm_bucket_accumulate"])]
-    log(f"[{tag}]   B8 msm_bucket_accumulate, all passes: "
-        f"{sum(us for us, _ in b8) / 1e3:.2f} ms device time in "
-        f"{sum(c for _, c in b8)} launches")
+    for label, name in (("B8 msm_bucket_accumulate, all passes",
+                         "msm_bucket_accumulate"), ("B6 g1_double", "g1_double")):
+        got = [v for key, v in per_kernel.items()
+               if is_entry(key, ENTRIES[name])]
+        log(f"[{tag}]   {label}: {sum(us for us, _ in got) / 1e3:.2f} ms "
+            f"device time in {sum(c for _, c in got)} launches")
 
 
 if __name__ == "__main__":

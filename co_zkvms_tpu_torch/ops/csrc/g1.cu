@@ -13,15 +13,16 @@
 // point formulas of g1.cuh entirely in registers; edge cases branch (rare,
 // so warps stay converged) instead of computing every path.
 //
-// B5 and B7 take field.cuh's carry-chain product (ChainArith), so that a
-// 32x32 product costs the two multiply-add slots the bound counts, and a
+// B5, B6 and B7 take field.cuh's carry-chain product (ChainArith), so that
+// a 32x32 product costs the two multiply-add slots the bound counts, and a
 // budget of 128 registers with no spills (__launch_bounds__(128, 4): four
 // blocks of 128 threads an SM, so 2^16 points run in one wave on 132 SMs).
 // B5's doubling path runs out of line and reads p again from memory, so
-// neither p nor the doubling sets the register peak. Their block
-// size is the caller's (32, 64 or 128 threads): a small launch takes
-// smaller blocks so that it spreads over more SMs. B4 and B6 keep
-// mont_mul / mont_sqr and 128-thread blocks.
+// neither p nor the doubling sets the register peak. B5 and B7 take their
+// block size from the caller (32, 64 or 128 threads): a small launch takes
+// smaller blocks so that it spreads over more SMs. B6 doubles each point
+// `times` times in registers (the Horner loop of a weighted bucket sum is
+// one launch). B4 keeps mont_mul / mont_sqr and 128-thread blocks.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -65,10 +66,10 @@ add_mixed_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ p
   store_jac(ox, oy, oz, i, o);
 }
 
-// B5 and B7: four blocks of up to 128 threads an SM, so at most 128
+// B5, B6 and B7: four blocks of up to 128 threads an SM, so at most 128
 // registers a thread.
 constexpr int kAddMaxThreads = 128;
-constexpr int kAddMinBlocks = 4;
+constexpr int kMinBlocks = 4;
 
 // B5's doubling path (p == q), out of line so that neither it nor p sets
 // the register peak of the add: it reads p again and writes the result.
@@ -82,7 +83,7 @@ __device__ __noinline__ void double_row(const uint32_t* px, const uint32_t* py,
   store_jac(ox, oy, oz, i, o);
 }
 
-__global__ void __launch_bounds__(kAddMaxThreads, kAddMinBlocks)
+__global__ void __launch_bounds__(kAddMaxThreads, kMinBlocks)
 add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
            const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
            const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
@@ -100,7 +101,7 @@ add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
   }
 }
 
-__global__ void __launch_bounds__(kAddMaxThreads, kAddMinBlocks)
+__global__ void __launch_bounds__(kAddMaxThreads, kMinBlocks)
 add_incomplete_kernel(const uint32_t* __restrict__ px,
                       const uint32_t* __restrict__ py,
                       const uint32_t* __restrict__ pz,
@@ -118,17 +119,18 @@ add_incomplete_kernel(const uint32_t* __restrict__ px,
   store_jac(ox, oy, oz, i, o);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B6: `times` doublings of each point in registers, one load and one store.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 double_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
               const uint32_t* __restrict__ pz, uint32_t* __restrict__ ox,
               uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
-              long long n) {
+              long long n, int times) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Jac p, o;
+  Jac p;
   load_jac(p, px, py, pz, i);
-  jac_double(o, p);
-  store_jac(ox, oy, oz, i, o);
+  jac_double_times<ChainArith>(p, times);
+  store_jac(ox, oy, oz, i, p);
 }
 
 unsigned blocks_for(long long n, int threads = kThreads) {
@@ -194,13 +196,15 @@ int g1_add_incomplete(const void* px, const void* py, const void* pz,
                     stream);
 }
 
+// times: the doublings a point, >= 1.
 int g1_double(const void* px, const void* py, const void* pz, void* ox,
-              void* oy, void* oz, long long n, void* stream) {
+              void* oy, void* oz, long long n, int times, void* stream) {
+  if (times < 1) return (int)cudaErrorInvalidValue;
   double_kernel<<<blocks_for(n), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py),
       static_cast<const uint32_t*>(pz), static_cast<uint32_t*>(ox),
-      static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), n);
+      static_cast<uint32_t*>(oy), static_cast<uint32_t*>(oz), n, times);
   return (int)cudaGetLastError();
 }
 

@@ -15,9 +15,9 @@
 //
 // The formulas are templates on the arithmetic policy of their Fq products
 // and squares: CiosArith (field.cuh's mont_mul / mont_sqr in C, the default
-// of the untemplated names, used by B4 and B6) or ChainArith (field.cuh's
-// carry-chain product, used by B5, B7 and B8). Both give the same canonical
-// values, so a formula's output does not depend on the policy.
+// of the untemplated names, used by B4) or ChainArith (field.cuh's
+// carry-chain product, used by B5, B6, B7 and B8). Both give the same
+// canonical values, so a formula's output does not depend on the policy.
 #pragma once
 #include "field.cuh"
 
@@ -69,7 +69,8 @@ FDEV void jac_copy(Jac& o, const Jac& p) {
   fe_copy(o.z, p.z);
 }
 
-// dbl-2009-l: 2M + 5S.
+// dbl-2009-l: 2M + 5S. o may alias p (every read of p comes before the
+// writes to o).
 template <class Ar>
 FDEV void jac_double_t(Jac& o, const Jac& p) {
   uint32_t a[8], b[8], c[8], d[8], e[8], t[8], x3[8], y3[8], z3[8];
@@ -251,8 +252,14 @@ FDEV void jac_add_incomplete_t(Jac& o, const Jac& p, const Jac& q) {
   jac_add_finish<Ar>(o, u1, s1, h, r, zz);
 }
 
-// The untemplated names keep mont_mul / mont_sqr (B4, B6).
-FDEV void jac_double(Jac& o, const Jac& p) { jac_double_t<CiosArith>(o, p); }
+// p <- 2^times p by `times` doublings in place (B6), times >= 1.
+template <class Ar>
+FDEV void jac_double_times(Jac& p, int times) {
+#pragma unroll 1
+  for (int k = 0; k < times; k++) jac_double_t<Ar>(p, p);
+}
+
+// The untemplated name keeps mont_mul / mont_sqr (B4).
 FDEV void jac_add_mixed(Jac& o, const Jac& p, const uint32_t qx[8],
                         const uint32_t qy[8]) {
   jac_add_mixed_t<CiosArith>(o, p, qx, qy);

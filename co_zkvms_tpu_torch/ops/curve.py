@@ -108,18 +108,26 @@ def _infinity_like(t: torch.Tensor) -> JPoint:
     return JPoint(one, one, torch.zeros_like(t))
 
 
-def double_plain(p: JPoint) -> JPoint:
-    """dbl-2009-l (a = 0): 2M + 5S per point."""
-    a = _sq(p.x)
-    b = _sq(p.y)
-    c = _sq(b)
-    d = _dbl(_sub(_sub(_sq(_add(p.x, b)), a), c))
-    e = _add(_dbl(a), a)
-    f = _sq(e)
-    x3 = _sub(f, _dbl(d))
-    y3 = _sub(_mul(e, _sub(d, x3)), _dbl(_dbl(_dbl(c))))
-    z3 = _dbl(_mul(p.y, p.z))
-    return JPoint(x3, y3, z3)
+def _check_times(times: int) -> None:
+    if times < 1:
+        raise ValueError(f"doublings: times >= 1, got {times}")
+
+
+def double_plain(p: JPoint, times: int = 1) -> JPoint:
+    """``times`` doublings (>= 1), each dbl-2009-l (a = 0): 2M + 5S."""
+    _check_times(times)
+    for _ in range(times):
+        a = _sq(p.x)
+        b = _sq(p.y)
+        c = _sq(b)
+        d = _dbl(_sub(_sub(_sq(_add(p.x, b)), a), c))
+        e = _add(_dbl(a), a)
+        f = _sq(e)
+        x3 = _sub(f, _dbl(d))
+        y3 = _sub(_mul(e, _sub(d, x3)), _dbl(_dbl(_dbl(c))))
+        z3 = _dbl(_mul(p.y, p.z))
+        p = JPoint(x3, y3, z3)
+    return p
 
 
 def add_mixed_plain(p: JPoint, q: APoint) -> JPoint:
@@ -219,7 +227,8 @@ G1_ADD = build.KernelFn("g1_add", "g1", "g1_add",
                         [_P] * 9 + [_N, ctypes.c_int, _P],
                         replaces=f"{_CP}:409")
 G1_DOUBLE = build.KernelFn("g1_double", "g1", "g1_double",
-                           [_P] * 6 + [_N, _P], replaces=f"{_CP}:456")
+                           [_P] * 6 + [_N, ctypes.c_int, _P],
+                           replaces=f"{_CP}:456")
 G1_ADD_INCOMPLETE = build.KernelFn("g1_add_incomplete", "g1",
                                    "g1_add_incomplete",
                                    [_P] * 9 + [_N, ctypes.c_int, _P],
@@ -262,9 +271,11 @@ def _flat_coords(coords):
     return flat, shape
 
 
-def _launch(kfn: build.KernelFn, coords, threads: int | None = None) -> JPoint:
+def _launch(kfn: build.KernelFn, coords, threads: int | None = None,
+            extra: tuple = ()) -> JPoint:
     """One launch of ``kfn`` over the broadcast batch. B5 and B7 take a
-    block size: ``threads``, or ``add_block_threads`` of the batch."""
+    block size: ``threads``, or ``add_block_threads`` of the batch; B6 its
+    count of doublings in ``extra``."""
     flat, shape = _flat_coords(coords)
     device = flat[0].device
     out = [torch.empty(shape, dtype=torch.int32, device=device)
@@ -275,7 +286,7 @@ def _launch(kfn: build.KernelFn, coords, threads: int | None = None) -> JPoint:
         if kfn in _SIZED:
             sized = (threads or add_block_threads(n, device),)
         kfn(*(c.data_ptr() for c in flat), *(o.data_ptr() for o in out), n,
-            *sized, build.stream_ptr(device))
+            *sized, *extra, build.stream_ptr(device))
     return JPoint(*out)
 
 
@@ -293,11 +304,13 @@ def add(p: JPoint, q: JPoint) -> JPoint:
     return _launch(G1_ADD, [*p, *q])
 
 
-def double(p: JPoint) -> JPoint:
-    """Jacobian doubling (kernel B6 on cuda)."""
+def double(p: JPoint, times: int = 1) -> JPoint:
+    """2^times p by ``times`` Jacobian doublings (kernel B6 on cuda: one
+    launch, the point in registers throughout)."""
     if F.on_cpu(*p):
-        return double_plain(p)
-    return _launch(G1_DOUBLE, list(p))
+        return double_plain(p, times)
+    _check_times(times)
+    return _launch(G1_DOUBLE, list(p), extra=(times,))
 
 
 def add_incomplete(p: JPoint, q: JPoint) -> JPoint:

@@ -359,9 +359,7 @@ def weighted_bucket_sum(buckets: JPoint, c: int) -> JPoint:
     s_lo = JPoint(*(v[:, 0] for v in _axis_reduce(grid, dim=1)))
     w_hi = _suffix_weighted(s_hi, hbits)
     w_lo = _suffix_weighted(s_lo, lbits)
-    for _ in range(lbits):
-        w_hi = C.double(w_hi)
-    return C.add(w_hi, w_lo)
+    return C.add(C.double(w_hi, times=lbits), w_lo)
 
 
 def _affine_dbl(pt):

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -129,6 +130,145 @@ def _det(m, r):
     return det % r
 
 
+# --- the sparse form of the partial rounds (Poseidon paper, eprint 2019/458,
+# Appendix B), derived on the host -------------------------------------------
+
+
+def _mat_mul(a, b, r):
+    return [[sum(x * y for x, y in zip(row, col)) % r for col in zip(*b)]
+            for row in a]
+
+
+def _mat_vec(m, v, r):
+    return [sum(x * y for x, y in zip(row, v)) % r for row in m]
+
+
+def _mat_inv(m, r):
+    """Inverse of a square matrix mod r (Gauss-Jordan); raises if singular."""
+    n = len(m)
+    a = [list(row) + [int(i == j) for j in range(n)]
+         for i, row in enumerate(m)]
+    for c in range(n):
+        piv = next((i for i in range(c, n) if a[i][c] % r), None)
+        if piv is None:
+            raise ValueError("singular matrix")
+        a[c], a[piv] = a[piv], a[c]
+        inv = pow(a[c][c], r - 2, r)
+        a[c] = [v * inv % r for v in a[c]]
+        for i in range(n):
+            if i != c and a[i][c]:
+                f = a[i][c]
+                a[i] = [(v - f * w) % r for v, w in zip(a[i], a[c])]
+    return [row[n:] for row in a]
+
+
+def _moved_constants(t: int):
+    """The round constants with each partial round's moved back through
+    M^-1, from the last partial round to the second: round i + 1's
+    constant c is written M (a e_0 + (0, d)) with (a, d) = M^-1 c; d joins
+    round i's constant (lanes 1.. pass the lane-0 S-box unchanged) and a
+    is added to lane 0 after round i's S-box.
+
+    Returns (first, scalars, moved): ``first`` the full vector that round
+    R_F/2 (the first partial round) adds, ``scalars[k]`` the lane-0
+    constant added after the S-box of partial round k (0 for the last), and
+    ``moved[k]`` the lanes-1.. vector that partial round k took from
+    partial round k + 1 (zeros for the last)."""
+    r = FR.modulus
+    rc, mds = params_host(t)
+    half, r_p = R_FULL // 2, R_PARTIAL[t]
+    m_inv = _mat_inv(mds, r)
+    scalars = [0] * r_p
+    moved = [[0] * (t - 1) for _ in range(r_p)]
+    pending = list(rc[half + r_p - 1])
+    for k in range(r_p - 1, 0, -1):
+        a, *d = _mat_vec(m_inv, pending, r)
+        scalars[k - 1], moved[k - 1] = a, d
+        pending = [rc[half + k - 1][0]] + [
+            (c + x) % r for c, x in zip(rc[half + k - 1][1:], d)]
+    return pending, scalars, moved
+
+
+def _sparse_factors(t: int):
+    """Each partial round k's matrix as A_k B_k, from the last round back:
+    B_k = diag(1, C_k) with C_k the lower-right (t-1) x (t-1) block of the
+    round's matrix, A_k = [[m00, row_k], [col_k, I]] sparse. B_k commutes
+    with the lane-0 S-box and lane-0 constant, so it folds into the round
+    before: the matrix of partial round k - 1 is B_k M, and B_0 folds into
+    the last full round of the first half, whose matrix becomes B_0 M.
+
+    Returns ([(A_k, B_k, matrix_k)] for k = 0..R_P-1, B_0)."""
+    r = FR.modulus
+    _, mds = params_host(t)
+    out = []
+    current = [list(row) for row in mds]
+    for _ in range(R_PARTIAL[t]):
+        c_hat = [row[1:] for row in current[1:]]
+        row = _mat_vec([list(x) for x in zip(*_mat_inv(c_hat, r))],
+                       current[0][1:], r)
+        a = [[current[0][0]] + row] + [
+            [current[i][0]] + [int(i == j) for j in range(1, t)]
+            for i in range(1, t)]
+        b = [[1] + [0] * (t - 1)] + [[0] + row for row in c_hat]
+        out.append((a, b, current))
+        current = _mat_mul(b, mds, r)
+    out.reverse()
+    return out, out[0][1]
+
+
+class SparseParams(NamedTuple):
+    """The t-lane permutation with sparse partial rounds (host ints)."""
+
+    full_rc: list    # [R_F][t]: the full rounds' constants, as params_host
+    pre_rc: list     # [t]: added before the first partial round's S-box
+    partial_rc: list  # [R_P]: added to lane 0 after each partial S-box
+    sparse: list     # [R_P] of [m00, row (t-1), col (t-1)]
+    pre_mds: list    # [t][t]: the matrix of the first half's last round
+    mds: list        # [t][t]: every other full round's matrix
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_params_host(t: int) -> SparseParams:
+    """The constants and matrices of host_permute_sparse (and of B12 for
+    t = 3), from params_host(t)."""
+    r = FR.modulus
+    rc, mds = params_host(t)
+    half, r_p = R_FULL // 2, R_PARTIAL[t]
+    first, scalars, _ = _moved_constants(t)
+    factors, b0 = _sparse_factors(t)
+    sparse = [[a[0][0]] + a[0][1:] + [row[0] for row in a[1:]]
+              for a, _, _ in factors]
+    return SparseParams(rc[:half] + rc[half + r_p:], _mat_vec(b0, first, r),
+                        scalars, sparse, _mat_mul(b0, mds, r), mds)
+
+
+def host_permute_sparse(state, t: int | None = None):
+    """host_permute with the partial rounds in the sparse form: per partial
+    round one S-box, one lane-0 constant and 2t - 1 products. The same
+    output as host_permute, which is the schedule kernel B12 runs."""
+    t = t or len(state)
+    r = FR.modulus
+    sp = sparse_params_host(t)
+    s = [v % r for v in state]
+    half = R_FULL // 2
+
+    def full(s, rnd, m):
+        return _mat_vec(m, [pow((v + c) % r, 5, r)
+                            for v, c in zip(s, sp.full_rc[rnd])], r)
+
+    for rnd in range(half):
+        s = full(s, rnd, sp.pre_mds if rnd == half - 1 else sp.mds)
+    s = [(v + c) % r for v, c in zip(s, sp.pre_rc)]
+    for k, (m00, *rest) in enumerate(sp.sparse):
+        x = (pow(s[0], 5, r) + sp.partial_rc[k]) % r
+        row, col = rest[:t - 1], rest[t - 1:]
+        s = [(m00 * x + sum(a * b for a, b in zip(row, s[1:]))) % r] + [
+            (v + c * x) % r for v, c in zip(s[1:], col)]
+    for rnd in range(half, R_FULL):
+        s = full(s, rnd, sp.mds)
+    return s
+
+
 @functools.lru_cache(maxsize=None)
 def _params_dev(t: int, device: torch.device):
     """Montgomery tables on ``device``: rc [(R_F+R_P)*t, 8], mds [t*t, 8]
@@ -196,21 +336,62 @@ def permute_composed(state):
 _P = ctypes.c_void_p
 POSEIDON_T3 = build.KernelFn(
     "poseidon_permute_t3", "poseidon", "poseidon_permute_t3",
-    [_P, _P, _P, _P, ctypes.c_longlong, _P],
+    [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
     replaces="co_zkvms_tpu/ops/poseidon.py:224 _permute_pallas_t3")
+# B12's S-box square: "chain" (field.cuh sqr_cc) or "sos" (mont_sqr);
+# chip_smoke.py times both
+T3_SQUARES = {"chain": 0, "sos": 1}
+T3_SQUARE = "chain"
 
 
-def _launch_t3(state):
+@functools.lru_cache(maxsize=None)
+def t3_constant_words():
+    """B12's constants in the layout of poseidon.cuh PoseidonT3Consts
+    (full_rc, pre_rc, partial_rc, sparse, then M and pre_mds), Montgomery
+    form: uint32 [387, 8]."""
+    sp = sparse_params_host(3)
+    vals = ([v for row in sp.full_rc for v in row] + sp.pre_rc +
+            sp.partial_rc + [v for row in sp.sparse for v in row] +
+            [v for m in (sp.mds, sp.pre_mds) for row in m for v in row])
+    return F.ints_to_words([v * FR.r_mod % FR.modulus for v in vals])
+
+
+# the devices whose constant bank holds B12's constants
+_T3_UPLOADED: set = set()
+
+
+def _upload_t3_constants(device: torch.device) -> None:
+    """Copy t3_constant_words into the constant bank of ``device``, once a
+    process; raises if the copy fails."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index in _T3_UPLOADED:
+        return
+    fn = build.load("poseidon").poseidon_t3_upload_constants
+    fn.argtypes = [_P, ctypes.c_size_t, _P]
+    fn.restype = ctypes.c_int
+    words = t3_constant_words()
+    with torch.cuda.device(index):
+        err = fn(words.ctypes.data, words.nbytes, build.stream_ptr(index))
+    if err != 0:
+        msg = build.load("poseidon").cuda_error_string(err).decode()
+        raise RuntimeError(f"poseidon_t3_upload_constants: CUDA error "
+                           f"{err}: {msg}")
+    _T3_UPLOADED.add(index)
+
+
+def _launch_t3(state, square: str | None = None):
     if state.dtype != torch.int32:
         raise TypeError(f"Poseidon states are int32 [..., 3, 8], got "
                         f"{state.dtype}")
-    rc, mds = _params_dev(3, state.device)
     flat = state.reshape(-1, 3, F.NLIMBS).contiguous()
     out = torch.empty_like(flat)
     n = flat.shape[0]
     if n:
-        POSEIDON_T3(flat.data_ptr(), rc.data_ptr(), mds.data_ptr(),
-                    out.data_ptr(), n, build.stream_ptr(state.device))
+        _upload_t3_constants(state.device)
+        POSEIDON_T3(flat.data_ptr(), out.data_ptr(), n,
+                    T3_SQUARES[square or T3_SQUARE],
+                    build.stream_ptr(state.device))
     return out.reshape(state.shape)
 
 

@@ -6,8 +6,11 @@ them with g++ and holds the kernels' Montgomery products (the C CIOS form,
 and the carry-chain form of B5, B7 and B8 with each PTX step emulated on C
 integers), modular add/sub, G1 formulas and B8's chunk walks under both
 arithmetic policies to the port's plain PyTorch versions bit for bit, edge
-rows included, and B12's t = 3 Poseidon permutation to the host mirror
-``host_permute``. No nvcc is needed; without g++ the test skips.
+rows included, B6's loop of doublings to repeated plain doublings, and
+B12's t = 3 Poseidon permutation in its sparse schedule, with its
+constants as the card's constant bank holds them, to the host mirror
+``host_permute`` and to ``permute_plain``. No nvcc is needed; without g++
+the test skips.
 """
 
 import ctypes
@@ -42,6 +45,7 @@ def _port_loaded():
 
 HARNESS = r"""
 #include <algorithm>
+#include <cstring>
 #include "g1.cuh"
 #include "msm_bucket.cuh"
 #include "poseidon.cuh"
@@ -195,13 +199,30 @@ extern "C" void h_bucket(int arith, const u32* px, const u32* py,
   }
 }
 extern "C" {
-// B12's permutation on n states [n][3][8] in place
-void h_poseidon(u32* s, const u32* rc, const u32* mds, int n) {
+// B12's constants into the host's PoseidonT3Consts, as the card's upload
+// fills the constant bank: -1 unless nbytes is the struct's size
+int h_poseidon_constants(const u32* words, size_t nbytes) {
+  if (nbytes != sizeof(PoseidonT3Consts)) return -1;
+  memcpy(&POSEIDON_T3_K, words, nbytes);
+  return 0;
+}
+// B12's permutation on n states [n][3][8] in place; sqr 0 sqr_cc, 1 mont_sqr
+void h_poseidon(int sqr, u32* s, int n) {
   for (int i = 0; i < n; i++) {
     u32 st[3][8];
     for (int k = 0; k < 3; k++) fe_copy(st[k], s + 24 * i + 8 * k);
-    poseidon_t3_permute(st, rc, mds);
+    if (sqr == 0) poseidon_t3_permute<0>(st);
+    else poseidon_t3_permute<1>(st);
     for (int k = 0; k < 3; k++) fe_copy(s + 24 * i + 8 * k, st[k]);
+  }
+}
+// B6: `times` doublings of each point in place, on carry chains
+void h_double_times(int times, u32* const* p, int n) {
+  for (int i = 0; i < n; i++) {
+    Jac a;
+    ld(a, p, i);
+    jac_double_times<ChainArith>(a, times);
+    st(p, i, a);
   }
 }
 }
@@ -296,18 +317,48 @@ def test_g1_formulas_match_plain(lib, arith):
 
 
 def test_poseidon_permutation_matches_host_mirror(lib):
-    """B12's round function (poseidon.cuh) on a few t = 3 states, edge
-    values included, against the host mirror on Python ints."""
+    """B12's sparse schedule (poseidon.cuh, carry-chain products emulated)
+    with either S-box square, its constants loaded from t3_constant_words
+    as the card's upload loads them, on t = 3 states with edge values,
+    against the host mirror on Python ints and the plain version
+    permute_plain, exactly."""
     rng = np.random.default_rng(53)
     r = F.FR.modulus
-    states = [[0, 0, 0], [1, 2, 3], [r - 1, r - 1, r - 1]] + [
+    states = [[0, 0, 0], [1, 2, 3], [r - 1, r - 1, r - 1], [0, 1, r - 1]] + [
         [int.from_bytes(rng.bytes(32), "little") % r for _ in range(3)]
-        for _ in range(3)]
-    s = F.from_int(F.FR, states, device="cpu").contiguous()
-    rc, mds = P._params_dev(3, torch.device("cpu"))
-    lib.h_poseidon(_ptr(s), _ptr(rc), _ptr(mds), len(states))
-    got = F.to_int(F.FR, s).tolist()
-    assert got == [P.host_permute(st) for st in states]
+        for _ in range(4)]
+    words = P.t3_constant_words()
+    assert lib.h_poseidon_constants(
+        ctypes.c_void_p(words.ctypes.data), ctypes.c_size_t(words.nbytes)) == 0
+    assert lib.h_poseidon_constants(
+        ctypes.c_void_p(words.ctypes.data),
+        ctypes.c_size_t(words.nbytes - 32)) == -1
+    start = F.from_int(F.FR, states, device="cpu").contiguous()
+    plain = P.permute_plain(start)
+    assert F.to_int(F.FR, plain).tolist() == [P.host_permute(st)
+                                              for st in states]
+    for sqr in (0, 1):
+        s = start.clone()
+        lib.h_poseidon(sqr, _ptr(s), len(states))
+        assert torch.equal(s, plain), sqr
+
+
+def test_double_times_matches_repeated_plain_doublings(lib):
+    """B6's loop (g1.cuh jac_double_times on carry chains, emulated) with
+    times = 1, 3 and 8 against that many applications of double_plain,
+    Jacobian coordinates exactly; an infinity row included."""
+    rng = np.random.default_rng(54)
+    ps = [bn.scalar_mul(bn.G1_GEN, int(rng.integers(1, 1 << 62)))
+          for _ in range(6)]
+    ps[2] = None
+    pj = _jacobian(ps)
+    for times in (1, 3, 8):
+        want = pj
+        for _ in range(times):
+            want = C.double_plain(want)
+        got = [c.clone().contiguous() for c in pj]
+        lib.h_double_times(times, _ptrs(got), len(ps))
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), times
 
 
 @pytest.fixture(scope="module")

@@ -137,6 +137,24 @@ def test_double_matches_pallas_body_and_reference(cases):
     assert got == [bn.g1_coords(bn.double(p)) for p in ps]
 
 
+@pytest.mark.parametrize("times", [1, 3])
+def test_double_times_matches_repeated_pallas_body(cases, times):
+    """double(p, times=k): k applications of the TPU kernel's body, and
+    2^k p, exactly (affine)."""
+    pj, _, _, ps, _ = cases
+    mod, _, n0 = CP._consts()
+    refs = tuple(_ref(c) for c in pj)
+    for _ in range(times):
+        out = Ref(), Ref(), Ref()
+        CP._double_kernel(*refs, *out, mod, n0)
+        refs = tuple(Ref(jnp.asarray(r.limbs().T)) for r in out)
+    want = _affine_ints(_jac_from_refs(*refs))
+    got = _affine_ints(C.double(pj, times=times))
+    assert got == want
+    assert got == [bn.g1_coords(bn.scalar_mul(p, 1 << times)
+                                if p is not None else None) for p in ps]
+
+
 def test_add_incomplete_matches_pallas_body(cases):
     """Same outputs as the TPU kernel on every row, the degenerate p == q
     row included (it collapses to the infinity encoding); equal to the

@@ -9,7 +9,11 @@ compiled whole, the 65 unrolled rounds take XLA:CPU many minutes and
 gigabytes. Its Pallas kernel ``_permute_pallas_t3`` is held to that same
 composition by the JAX package's own
 ``tests/test_poseidon.py::test_fused_kernel_matches_jnp_path``, so the
-plain B12 is held to it here on the inputs of that test."""
+plain B12 is held to it here on the inputs of that test.
+
+B12's schedule, with sparse partial rounds, is held on host ints to the
+JAX package's host_permute, exactly, and its derived factors and moved
+constants to the dense matrix and the original constants."""
 
 import jax
 import numpy as np
@@ -121,3 +125,57 @@ def test_transcript_equals_the_jax_package_and_the_host_mirror():
         _same(ch, jch)
         assert F.to_int(F.FR, ch) == host.challenge()
     assert F.to_int(F.FR, st).tolist() == host.state
+
+
+def _sparse_states(t, n, seed):
+    """n seeded t-lane states, the first ones made of 0, 1 and r - 1."""
+    rng = np.random.default_rng(seed)
+    edge = [[0] * t, [1] * t, [MOD - 1] * t, [0, 1] + [MOD - 1] * (t - 2),
+            [MOD - 1] + [0] * (t - 1)]
+    rand = [[int(v) for v in _ints(rng, (t,))] for _ in range(n - len(edge))]
+    return edge + rand
+
+
+@pytest.mark.parametrize("t,n", [(3, 64), (4, 6), (5, 6)])
+def test_sparse_schedule_equals_the_jax_host_permute(t, n):
+    """B12's schedule (sparse partial rounds) on host ints against the JAX
+    package's host_permute, exactly."""
+    for state in _sparse_states(t, n, 60 + t):
+        assert P.host_permute_sparse(state) == JP.host_permute(state), state
+
+
+@pytest.mark.parametrize("t", [3, 4, 5])
+def test_sparse_factors_and_moved_constants(t):
+    """Each partial round's matrix is A_k B_k (A_k sparse, B_k = diag(1,
+    C_k)), the matrix before it is B_k M and the first half's last matrix
+    B_0 M; each moved constant goes back to the original through M."""
+    r = MOD
+    rc, mds = P.params_host(t)
+    half = P.R_FULL // 2
+    factors, b0 = P._sparse_factors(t)
+    assert len(factors) == P.R_PARTIAL[t]
+    assert factors[-1][2] == mds
+    for k, (a, b, matrix) in enumerate(factors):
+        assert P._mat_mul(a, b, r) == matrix
+        assert all(a[i][j] == int(i == j) for i in range(1, t)
+                   for j in range(1, t))
+        assert b[0] == [1] + [0] * (t - 1) and all(row[0] == 0
+                                                   for row in b[1:])
+        if k:
+            assert factors[k - 1][2] == P._mat_mul(b, mds, r)
+    sp = P.sparse_params_host(t)
+    assert sp.pre_mds == P._mat_mul(b0, mds, r) and sp.mds == mds
+    assert sp.sparse == [[a[0][0]] + a[0][1:] + [row[0] for row in a[1:]]
+                         for a, _, _ in factors]
+    first, scalars, moved = P._moved_constants(t)
+    assert first == [rc[half][0]] + [(c + d) % r for c, d in
+                                     zip(rc[half][1:], moved[0])]
+    assert scalars[-1] == 0 and moved[-1] == [0] * (t - 1)
+    for k in range(1, P.R_PARTIAL[t]):
+        want = [rc[half + k][0]] + [(c + d) % r for c, d in
+                                    zip(rc[half + k][1:], moved[k])]
+        assert P._mat_vec(mds, [scalars[k - 1]] + moved[k - 1], r) == want
+    assert sp.pre_rc == P._mat_vec(b0, first, r)
+    assert sp.partial_rc == scalars
+    assert sp.full_rc == rc[:half] + rc[half + P.R_PARTIAL[t]:]
+
