@@ -19,8 +19,7 @@ before its last line:
               threads; B6 with 1, 7 and 8 doublings a launch at the paths'
               shapes (16 and 19 window sums, 2^10 points, 2^16), each
               bit-exact; B4-B8 report their ptxas registers and spill stores.
-              B12 on 2^(nv-2) states with each S-box square (sqr_cc,
-              mont_sqr), both bit-exact with permute.
+              B12 timed on 2^(nv-2) states.
               B8 on three window sets (uniform scalars on 2^nv points,
               row-like scalars on 2^(nv+1), one scalar for all 2^nv), each
               bit-exact on two windows and timed over all its passes at
@@ -514,9 +513,7 @@ ENTRIES = {"fp_mul": ("binary_kernel<0,0>",),
                ("eval_kernel<0,(anonymousnamespace)::InnerComb>",),
            "sc_reduce_partials": ("reduce_kernel<0>",),
            "sc_bind_round": ("bind_kernel<0>",),
-           # B12 by its S-box square: <0> sqr_cc, <1> mont_sqr
-           "poseidon_permute_t3": ("poseidon_t3_kernel<0>",
-                                   "poseidon_t3_kernel<1>")}
+           "poseidon_permute_t3": ("poseidon_t3_kernel",)}
 
 
 def mangled(entry: str):
@@ -735,30 +732,19 @@ def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
 OFF_PROVER = ("poseidon_permute_t3",)
 
 
-def poseidon_ms(torch, dev, gen, nv: int) -> dict:
-    """B12's device time a launch on 2^(nv-2) t = 3 states with each S-box
-    square ({square: ms}); the square that permute does not take must give
-    its output bit for bit (slice 4 checks permute against the plain
-    version and the composition over B1-B3)."""
+def poseidon_ms(torch, dev, gen, nv: int) -> float:
+    """B12's device time a launch on 2^(nv-2) t = 3 states (slice 4 checks
+    permute against the plain version and the composition over B1-B3)."""
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import poseidon as P
 
     n = 1 << (nv - 2)
     state = F.to_mont(F.FR, random_fe(torch, gen, 3 * n, dev)).reshape(n, 3, 8)
-    want = P.permute(state)
-    times = {}
-    for square, k in P.T3_SQUARES.items():
-        got = P._launch_t3(state, square)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"B12 with the {square} square != permute")
-        times[square] = kernel_ms(
-            torch, lambda square=square: P._launch_t3(state, square), 10,
-            (f"poseidon_t3_kernel<{k}>",))
-    log(f"[kernels] poseidon_permute_t3 2^{nv - 2} states, both S-box "
-        f"squares bit-exact with permute ({P.T3_SQUARE}); device " +
-        ", ".join(f"{sq} {ms:.3f} ms" for sq, ms in times.items()))
-    return times
+    ms = kernel_ms(torch, lambda: P.permute(state), 10,
+                   ENTRIES[P.POSEIDON_T3.name])
+    log(f"[kernels] poseidon_permute_t3 2^{nv - 2} states: device "
+        f"{ms:.3f} ms")
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -1085,7 +1071,7 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def slice4_phase(torch, dev, args, records, b12_ms: dict, regs) -> None:
+def slice4_phase(torch, dev, args, records, ms: float, regs) -> None:
     from co_zkvms_tpu_torch.ops import curve as C
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import msm as M
@@ -1195,7 +1181,6 @@ def slice4_phase(torch, dev, args, records, b12_ms: dict, regs) -> None:
     check(torch.equal(full[:, 1], hashes), "hash2 != permute(state)[1]")
     composed, composed_ms = timed(torch, lambda: P.permute_composed(state))
     check(torch.equal(full, composed), "B12 != the B1-B3 composition")
-    ms = b12_ms[P.T3_SQUARE]
     ms_events = cuda_ms(torch, lambda: P.permute(state), 10)
     hash_ms = cuda_ms(torch, lambda: P.hash2(a, b), 10)
     idx = torch.randint(0, n_hash, (64,), generator=gen).tolist()
@@ -1209,8 +1194,6 @@ def slice4_phase(torch, dev, args, records, b12_ms: dict, regs) -> None:
     rec["launches"] = rec["launches_slice4"] = launches[P.POSEIDON_T3.name]
     rec["launches_of"] = "slice4"
     rec["ms_events"] = ms_events
-    rec["square"] = P.T3_SQUARE
-    rec["ms_by_square"] = b12_ms
     rec["bound_dense_ms"], _ = bound(nbytes, POSEIDON_T3_DENSE_OPS * n_hash)
     rec.update(registers_of(regs, P.POSEIDON_T3.name))
     records.append(rec)
@@ -1273,14 +1256,12 @@ def slice4_phase(torch, dev, args, records, b12_ms: dict, regs) -> None:
         f"samples == host_hash")
     log(f"[slice4] hash2 over 2^{nv - 2} pairs: {hash_ms:.3f} ms, "
         f"{n_hash / (hash_ms / 1e3):,.0f} hashes/s; B12 device {ms:.3f} ms "
-        f"a launch with the {P.T3_SQUARE} square (kernel phase; " +
-        ", ".join(f"{sq} {t:.3f}" for sq, t in b12_ms.items()) +
-        f"; CUDA events {ms_events:.3f} ms; plain {plain_ms:.1f} ms "
-        f"on 2^{nv - 4}), bound {rec['bound_ms']:.4f} ms sparse "
+        f"a launch (kernel phase; CUDA events {ms_events:.3f} ms; plain "
+        f"{plain_ms:.1f} ms on 2^{nv - 4}), bound {rec['bound_ms']:.4f} ms sparse "
         f"({rec['bound_by']}), {100 * rec['bound_ms'] / ms:.1f} % of it; "
         f"dense schedule's bound {rec['bound_dense_ms']:.4f} ms; "
         f"{rec['registers']} registers, {rec['spill_stores']} bytes spill "
-        f"stores ({rec.get('by_entry')})")
+        "stores")
     log(f"[slice4] Merkle root over 2^{nv} leaves: {len(levels) - 1} "
         f"merkle_layer calls, {n_leaves - 1} hashes in "
         f"{wall['merkle']:.3f} s; {n_checked} nodes == host_hash")

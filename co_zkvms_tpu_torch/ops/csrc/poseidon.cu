@@ -14,13 +14,12 @@
 // permutation is 438 Montgomery products and 162 squares, about 149,328
 // 32-bit multiply-add slots (the dense schedule: 666 and 162, 209,520),
 // against 192 bytes of state traffic, so bytes never bind. Carry-chain
-// products (field.cuh mul_cc) and a budget of 128 registers at 128 threads
-// a block, so four blocks (16 warps) an SM. The budget is met through the
-// launch bounds' block count: at (128, 4) ptxas schedules the sqr_cc
+// products (field.cuh mul_cc and sqr_cc) and a budget of 128 registers at
+// 128 threads a block, so four blocks (16 warps) an SM. The budget is met
+// through the launch bounds' block count: at (128, 4) ptxas schedules the
 // kernel up to its cap of 128 registers and spills 4 bytes; at (128, 3) it
 // takes 119 registers with no spills, which still fits four blocks, in the
-// same time. The mont_sqr kernel takes 144 at (128, 3), so it keeps
-// (128, 4): 127 registers, no spills.
+// same time.
 #include <cuda_runtime.h>
 
 #include "poseidon.cuh"
@@ -31,11 +30,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// the launch bounds' blocks an SM, by S-box square (see above)
-constexpr int min_blocks(int sqr) { return sqr == 0 ? 3 : 4; }
-
-template <int Sqr>
-__global__ void __launch_bounds__(kThreads, min_blocks(Sqr))
+__global__ void __launch_bounds__(kThreads, 3)
 poseidon_t3_kernel(const uint32_t* __restrict__ in,
                    uint32_t* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -43,7 +38,7 @@ poseidon_t3_kernel(const uint32_t* __restrict__ in,
   uint32_t s[3][8];
 #pragma unroll
   for (int k = 0; k < 3; k++) fe_load(s[k], in + 24 * i + 8 * k);
-  poseidon_t3_permute<Sqr>(s);
+  poseidon_t3_permute(s);
 #pragma unroll
   for (int k = 0; k < 3; k++) fe_store(out + 24 * i + 8 * k, s[k]);
 }
@@ -53,31 +48,24 @@ poseidon_t3_kernel(const uint32_t* __restrict__ in,
 extern "C" {
 
 // Copies the constants (the words of ops/poseidon.py t3_constant_words,
-// nbytes of them) into the constant bank of the current device, on
-// `stream`. Returns cudaErrorInvalidValue if nbytes is not the struct's size.
-int poseidon_t3_upload_constants(const void* words, size_t nbytes,
-                                 void* stream) {
+// nbytes of them) into the constant bank of the current device and waits
+// for the device, so that a launch on any stream reads them. Once a
+// process and device. Returns cudaErrorInvalidValue if nbytes is not the
+// struct's size.
+int poseidon_t3_upload_constants(const void* words, size_t nbytes) {
   if (nbytes != sizeof(PoseidonT3Consts)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaMemcpyToSymbolAsync(
-      POSEIDON_T3_K, words, nbytes, 0, cudaMemcpyHostToDevice,
-      static_cast<cudaStream_t>(stream));
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  cudaError_t err = cudaMemcpyToSymbol(POSEIDON_T3_K, words, nbytes, 0,
+                                       cudaMemcpyHostToDevice);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return (int)err;
 }
 
-// square: 0 the carry-chain square (sqr_cc), 1 the SOS square (mont_sqr).
-int poseidon_permute_t3(const void* in, void* out, long long n, int square,
+int poseidon_permute_t3(const void* in, void* out, long long n,
                         void* stream) {
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint32_t* a = static_cast<const uint32_t*>(in);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  if (square == 0) {
-    poseidon_t3_kernel<0><<<blocks, kThreads, 0, s>>>(a, o, n);
-  } else if (square == 1) {
-    poseidon_t3_kernel<1><<<blocks, kThreads, 0, s>>>(a, o, n);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  poseidon_t3_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), n);
   return (int)cudaGetLastError();
 }
 

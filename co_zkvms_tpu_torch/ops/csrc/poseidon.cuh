@@ -19,9 +19,9 @@
 //
 // Products are field.cuh's carry-chain mul_cc (both operands < m, which
 // holds: states and constants are canonical), with the constant as the
-// operand whose words are taken one a step. The S-box's two squares are
-// sqr_cc or mont_sqr by the template argument Sqr (poseidon.cu launches
-// either; chip_smoke.py times both).
+// operand whose words are taken one a step, and the S-box's two squares
+// its sqr_cc (on an H100 the SOS square mont_sqr made the kernel 1.40x
+// slower; PERF.md).
 //
 // The constants (PoseidonT3Consts, 387 elements, 12,384 bytes, Montgomery
 // form) live in the constant bank on the card: every thread of a warp is in
@@ -54,32 +54,20 @@ struct PoseidonT3Consts {
 
 FBANK PoseidonT3Consts POSEIDON_T3_K;
 
-// The S-box's square: 0 the carry-chain product sqr_cc, 1 the SOS mont_sqr.
-template <int Sqr>
-FDEV void sbox_sqr(uint32_t r[8], const uint32_t a[8]) {
-  if (Sqr == 0) {
-    sqr_cc<FR_ID>(r, a);
-  } else {
-    mont_sqr<FR_ID>(r, a);
-  }
-}
-
 // x <- x^5
-template <int Sqr>
 FDEV void sbox5(uint32_t x[8]) {
   uint32_t x2[8];
-  sbox_sqr<Sqr>(x2, x);
-  sbox_sqr<Sqr>(x2, x2);
+  sqr_cc<FR_ID>(x2, x);
+  sqr_cc<FR_ID>(x2, x2);
   mul_cc<FR_ID>(x, x, x2);
 }
 
 // Full round fr (0..7): s <- mds[m] * sbox(s + full_rc[fr]).
-template <int Sqr>
 FDEV void poseidon_t3_full(uint32_t s[3][8], int fr, int m) {
 #pragma unroll
   for (int i = 0; i < 3; i++) {
     mod_add<FR_ID>(s[i], s[i], POSEIDON_T3_K.full_rc[fr][i]);
-    sbox5<Sqr>(s[i]);
+    sbox5(s[i]);
   }
   uint32_t out[3][8], p[8];
 #pragma unroll
@@ -97,10 +85,9 @@ FDEV void poseidon_t3_full(uint32_t s[3][8], int fr, int m) {
 
 // Partial round k (0..56): x^5 and the lane-0 constant on lane 0, then the
 // sparse product.
-template <int Sqr>
 FDEV void poseidon_t3_partial(uint32_t s[3][8], int k) {
   const uint32_t(*sp)[8] = POSEIDON_T3_K.sparse[k];
-  sbox5<Sqr>(s[0]);
+  sbox5(s[0]);
   mod_add<FR_ID>(s[0], s[0], POSEIDON_T3_K.partial_rc[k]);
   uint32_t acc[8], p[8];
   mul_cc<FR_ID>(acc, s[0], sp[0]);
@@ -118,22 +105,21 @@ FDEV void poseidon_t3_partial(uint32_t s[3][8], int k) {
 
 // The whole permutation, in place. Loops, not unrolled rounds: the round
 // bodies are the code size that matters.
-template <int Sqr>
 FDEV void poseidon_t3_permute(uint32_t s[3][8]) {
   constexpr int half = POSEIDON_T3_RF / 2;
 #pragma unroll 1
   for (int fr = 0; fr < half; fr++) {
-    poseidon_t3_full<Sqr>(s, fr, fr == half - 1 ? 1 : 0);
+    poseidon_t3_full(s, fr, fr == half - 1 ? 1 : 0);
   }
 #pragma unroll
   for (int i = 0; i < 3; i++) {
     mod_add<FR_ID>(s[i], s[i], POSEIDON_T3_K.pre_rc[i]);
   }
 #pragma unroll 1
-  for (int k = 0; k < POSEIDON_T3_RP; k++) poseidon_t3_partial<Sqr>(s, k);
+  for (int k = 0; k < POSEIDON_T3_RP; k++) poseidon_t3_partial(s, k);
 #pragma unroll 1
   for (int fr = half; fr < POSEIDON_T3_RF; fr++) {
-    poseidon_t3_full<Sqr>(s, fr, 0);
+    poseidon_t3_full(s, fr, 0);
   }
 }
 

@@ -162,60 +162,6 @@ def _mat_inv(m, r):
     return [row[n:] for row in a]
 
 
-def _moved_constants(t: int):
-    """The round constants with each partial round's moved back through
-    M^-1, from the last partial round to the second: round i + 1's
-    constant c is written M (a e_0 + (0, d)) with (a, d) = M^-1 c; d joins
-    round i's constant (lanes 1.. pass the lane-0 S-box unchanged) and a
-    is added to lane 0 after round i's S-box.
-
-    Returns (first, scalars, moved): ``first`` the full vector that round
-    R_F/2 (the first partial round) adds, ``scalars[k]`` the lane-0
-    constant added after the S-box of partial round k (0 for the last), and
-    ``moved[k]`` the lanes-1.. vector that partial round k took from
-    partial round k + 1 (zeros for the last)."""
-    r = FR.modulus
-    rc, mds = params_host(t)
-    half, r_p = R_FULL // 2, R_PARTIAL[t]
-    m_inv = _mat_inv(mds, r)
-    scalars = [0] * r_p
-    moved = [[0] * (t - 1) for _ in range(r_p)]
-    pending = list(rc[half + r_p - 1])
-    for k in range(r_p - 1, 0, -1):
-        a, *d = _mat_vec(m_inv, pending, r)
-        scalars[k - 1], moved[k - 1] = a, d
-        pending = [rc[half + k - 1][0]] + [
-            (c + x) % r for c, x in zip(rc[half + k - 1][1:], d)]
-    return pending, scalars, moved
-
-
-def _sparse_factors(t: int):
-    """Each partial round k's matrix as A_k B_k, from the last round back:
-    B_k = diag(1, C_k) with C_k the lower-right (t-1) x (t-1) block of the
-    round's matrix, A_k = [[m00, row_k], [col_k, I]] sparse. B_k commutes
-    with the lane-0 S-box and lane-0 constant, so it folds into the round
-    before: the matrix of partial round k - 1 is B_k M, and B_0 folds into
-    the last full round of the first half, whose matrix becomes B_0 M.
-
-    Returns ([(A_k, B_k, matrix_k)] for k = 0..R_P-1, B_0)."""
-    r = FR.modulus
-    _, mds = params_host(t)
-    out = []
-    current = [list(row) for row in mds]
-    for _ in range(R_PARTIAL[t]):
-        c_hat = [row[1:] for row in current[1:]]
-        row = _mat_vec([list(x) for x in zip(*_mat_inv(c_hat, r))],
-                       current[0][1:], r)
-        a = [[current[0][0]] + row] + [
-            [current[i][0]] + [int(i == j) for j in range(1, t)]
-            for i in range(1, t)]
-        b = [[1] + [0] * (t - 1)] + [[0] + row for row in c_hat]
-        out.append((a, b, current))
-        current = _mat_mul(b, mds, r)
-    out.reverse()
-    return out, out[0][1]
-
-
 class SparseParams(NamedTuple):
     """The t-lane permutation with sparse partial rounds (host ints)."""
 
@@ -230,16 +176,42 @@ class SparseParams(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def sparse_params_host(t: int) -> SparseParams:
     """The constants and matrices of host_permute_sparse (and of B12 for
-    t = 3), from params_host(t)."""
+    t = 3), from params_host(t).
+
+    Constants: from the last partial round back to the second, round k's
+    constant c is written M (a e_0 + (0, d)) with (a, d) = M^-1 c; d joins
+    round k - 1's constant (lanes 1.. pass the lane-0 S-box unchanged) and
+    a is added to lane 0 after round k - 1's S-box. What is left for the
+    first partial round is added before its S-box (``pre_rc``).
+
+    Matrices: from the last partial round back, the round's matrix is
+    A_k B_k with B_k = diag(1, C_k), C_k its lower-right (t-1) x (t-1)
+    block, and A_k = [[m00, row_k], [col_k, I]] sparse. B_k commutes with
+    the lane-0 S-box and constant, so it folds into the round before: the
+    matrix of partial round k - 1 is B_k M, and B_0 folds into the first
+    half's last full round (``pre_mds`` = B_0 M) and into ``pre_rc``."""
     r = FR.modulus
     rc, mds = params_host(t)
     half, r_p = R_FULL // 2, R_PARTIAL[t]
-    first, scalars, _ = _moved_constants(t)
-    factors, b0 = _sparse_factors(t)
-    sparse = [[a[0][0]] + a[0][1:] + [row[0] for row in a[1:]]
-              for a, _, _ in factors]
-    return SparseParams(rc[:half] + rc[half + r_p:], _mat_vec(b0, first, r),
-                        scalars, sparse, _mat_mul(b0, mds, r), mds)
+    m_inv = _mat_inv(mds, r)
+    scalars = [0] * r_p
+    pending = list(rc[half + r_p - 1])
+    for k in range(r_p - 1, 0, -1):
+        a, *d = _mat_vec(m_inv, pending, r)
+        scalars[k - 1] = a
+        pending = [rc[half + k - 1][0]] + [
+            (c + x) % r for c, x in zip(rc[half + k - 1][1:], d)]
+    sparse = [None] * r_p
+    current = mds
+    for k in range(r_p - 1, -1, -1):
+        c_hat = [row[1:] for row in current[1:]]
+        row = _mat_vec([list(x) for x in zip(*_mat_inv(c_hat, r))],
+                       current[0][1:], r)
+        sparse[k] = [current[0][0]] + row + [v[0] for v in current[1:]]
+        b = [[1] + [0] * (t - 1)] + [[0] + v for v in c_hat]
+        current = _mat_mul(b, mds, r)
+    return SparseParams(rc[:half] + rc[half + r_p:], _mat_vec(b, pending, r),
+                        scalars, sparse, current, mds)
 
 
 def host_permute_sparse(state, t: int | None = None):
@@ -336,12 +308,8 @@ def permute_composed(state):
 _P = ctypes.c_void_p
 POSEIDON_T3 = build.KernelFn(
     "poseidon_permute_t3", "poseidon", "poseidon_permute_t3",
-    [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    [_P, _P, ctypes.c_longlong, _P],
     replaces="co_zkvms_tpu/ops/poseidon.py:224 _permute_pallas_t3")
-# B12's S-box square: "chain" (field.cuh sqr_cc) or "sos" (mont_sqr);
-# chip_smoke.py times both
-T3_SQUARES = {"chain": 0, "sos": 1}
-T3_SQUARE = "chain"
 
 
 @functools.lru_cache(maxsize=None)
@@ -368,11 +336,11 @@ def _upload_t3_constants(device: torch.device) -> None:
     if index in _T3_UPLOADED:
         return
     fn = build.load("poseidon").poseidon_t3_upload_constants
-    fn.argtypes = [_P, ctypes.c_size_t, _P]
+    fn.argtypes = [_P, ctypes.c_size_t]
     fn.restype = ctypes.c_int
     words = t3_constant_words()
     with torch.cuda.device(index):
-        err = fn(words.ctypes.data, words.nbytes, build.stream_ptr(index))
+        err = fn(words.ctypes.data, words.nbytes)
     if err != 0:
         msg = build.load("poseidon").cuda_error_string(err).decode()
         raise RuntimeError(f"poseidon_t3_upload_constants: CUDA error "
@@ -380,7 +348,7 @@ def _upload_t3_constants(device: torch.device) -> None:
     _T3_UPLOADED.add(index)
 
 
-def _launch_t3(state, square: str | None = None):
+def _launch_t3(state):
     if state.dtype != torch.int32:
         raise TypeError(f"Poseidon states are int32 [..., 3, 8], got "
                         f"{state.dtype}")
@@ -390,7 +358,6 @@ def _launch_t3(state, square: str | None = None):
     if n:
         _upload_t3_constants(state.device)
         POSEIDON_T3(flat.data_ptr(), out.data_ptr(), n,
-                    T3_SQUARES[square or T3_SQUARE],
                     build.stream_ptr(state.device))
     return out.reshape(state.shape)
 

@@ -206,13 +206,12 @@ int h_poseidon_constants(const u32* words, size_t nbytes) {
   memcpy(&POSEIDON_T3_K, words, nbytes);
   return 0;
 }
-// B12's permutation on n states [n][3][8] in place; sqr 0 sqr_cc, 1 mont_sqr
-void h_poseidon(int sqr, u32* s, int n) {
+// B12's permutation on n states [n][3][8] in place
+void h_poseidon(u32* s, int n) {
   for (int i = 0; i < n; i++) {
     u32 st[3][8];
     for (int k = 0; k < 3; k++) fe_copy(st[k], s + 24 * i + 8 * k);
-    if (sqr == 0) poseidon_t3_permute<0>(st);
-    else poseidon_t3_permute<1>(st);
+    poseidon_t3_permute(st);
     for (int k = 0; k < 3; k++) fe_copy(s + 24 * i + 8 * k, st[k]);
   }
 }
@@ -318,7 +317,7 @@ def test_g1_formulas_match_plain(lib, arith):
 
 def test_poseidon_permutation_matches_host_mirror(lib):
     """B12's sparse schedule (poseidon.cuh, carry-chain products emulated)
-    with either S-box square, its constants loaded from t3_constant_words
+    with its constants loaded from t3_constant_words
     as the card's upload loads them, on t = 3 states with edge values,
     against the host mirror on Python ints and the plain version
     permute_plain, exactly."""
@@ -337,10 +336,9 @@ def test_poseidon_permutation_matches_host_mirror(lib):
     plain = P.permute_plain(start)
     assert F.to_int(F.FR, plain).tolist() == [P.host_permute(st)
                                               for st in states]
-    for sqr in (0, 1):
-        s = start.clone()
-        lib.h_poseidon(sqr, _ptr(s), len(states))
-        assert torch.equal(s, plain), sqr
+    s = start.clone()
+    lib.h_poseidon(_ptr(s), len(states))
+    assert torch.equal(s, plain)
 
 
 def test_double_times_matches_repeated_plain_doublings(lib):

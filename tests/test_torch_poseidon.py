@@ -146,36 +146,40 @@ def test_sparse_schedule_equals_the_jax_host_permute(t, n):
 
 @pytest.mark.parametrize("t", [3, 4, 5])
 def test_sparse_factors_and_moved_constants(t):
-    """Each partial round's matrix is A_k B_k (A_k sparse, B_k = diag(1,
-    C_k)), the matrix before it is B_k M and the first half's last matrix
-    B_0 M; each moved constant goes back to the original through M."""
+    """From the last partial round back: the round's matrix (M for the
+    last) is A_k B_k with A_k = [[m00, row_k], [col_k, I]] from
+    ``sparse[k]`` and B_k = diag(1, its lower-right block), the matrix
+    before it is B_k M, and the first half's last matrix is B_0 M. Each
+    partial round's constant goes back through M^-1 and returns through M
+    to itself: its lane-0 part is the ``partial_rc`` of the round before,
+    the rest joins that round's constant, and B_0 times what is left for
+    the first partial round is ``pre_rc``."""
     r = MOD
     rc, mds = P.params_host(t)
-    half = P.R_FULL // 2
-    factors, b0 = P._sparse_factors(t)
-    assert len(factors) == P.R_PARTIAL[t]
-    assert factors[-1][2] == mds
-    for k, (a, b, matrix) in enumerate(factors):
-        assert P._mat_mul(a, b, r) == matrix
-        assert all(a[i][j] == int(i == j) for i in range(1, t)
-                   for j in range(1, t))
-        assert b[0] == [1] + [0] * (t - 1) and all(row[0] == 0
-                                                   for row in b[1:])
-        if k:
-            assert factors[k - 1][2] == P._mat_mul(b, mds, r)
+    half, r_p = P.R_FULL // 2, P.R_PARTIAL[t]
     sp = P.sparse_params_host(t)
-    assert sp.pre_mds == P._mat_mul(b0, mds, r) and sp.mds == mds
-    assert sp.sparse == [[a[0][0]] + a[0][1:] + [row[0] for row in a[1:]]
-                         for a, _, _ in factors]
-    first, scalars, moved = P._moved_constants(t)
-    assert first == [rc[half][0]] + [(c + d) % r for c, d in
-                                     zip(rc[half][1:], moved[0])]
-    assert scalars[-1] == 0 and moved[-1] == [0] * (t - 1)
-    for k in range(1, P.R_PARTIAL[t]):
-        want = [rc[half + k][0]] + [(c + d) % r for c, d in
-                                    zip(rc[half + k][1:], moved[k])]
-        assert P._mat_vec(mds, [scalars[k - 1]] + moved[k - 1], r) == want
-    assert sp.pre_rc == P._mat_vec(b0, first, r)
-    assert sp.partial_rc == scalars
-    assert sp.full_rc == rc[:half] + rc[half + P.R_PARTIAL[t]:]
+    assert sp.mds == mds and len(sp.sparse) == r_p
+    assert sp.full_rc == rc[:half] + rc[half + r_p:]
+    matrix = mds
+    for k in range(r_p - 1, -1, -1):
+        m00, *rest = sp.sparse[k]
+        a = [[m00] + rest[:t - 1]] + [
+            [c] + [int(i == j) for j in range(1, t)]
+            for i, c in enumerate(rest[t - 1:], start=1)]
+        b = [[1] + [0] * (t - 1)] + [[0] + row[1:] for row in matrix[1:]]
+        assert P._mat_mul(a, b, r) == matrix, k
+        matrix = P._mat_mul(b, mds, r)
+    assert sp.pre_mds == matrix
+    m_inv = P._mat_inv(mds, r)
+    assert P._mat_mul(mds, m_inv, r) == [[int(i == j) for j in range(t)]
+                                         for i in range(t)]
+    assert sp.partial_rc[-1] == 0
+    constant = list(rc[half + r_p - 1])
+    for k in range(r_p - 1, 0, -1):
+        lane0, *moved = P._mat_vec(m_inv, constant, r)
+        assert P._mat_vec(mds, [lane0] + moved, r) == constant, k
+        assert sp.partial_rc[k - 1] == lane0, k
+        constant = [rc[half + k - 1][0]] + [
+            (c + d) % r for c, d in zip(rc[half + k - 1][1:], moved)]
+    assert sp.pre_rc == P._mat_vec(b, constant, r)
 
