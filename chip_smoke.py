@@ -27,13 +27,19 @@ before its last line:
               shape with and without the top-window regroup. The sumcheck
               round kernels (B9 for each comb instance, B11, B10 on tables
               and on a [3, n, 8] share stack) run at the first round's
-              shapes of the slice's sumchecks.
+              shapes of the slice's sumchecks, B9 there also at grids of
+              2, 3, 4 and 8 blocks an SM and one block a 128 pairs; then
+              each B9 comb at every round of one nv-round sumcheck (tables
+              bound by B10 between rounds, the split-eq suffixes of random
+              taus), each round bit-exact, its device time summed.
   4. slice    the main path through the entry points a user calls:
               pst13.setup(nv, 7) and spartan.prove of
               squaring_chain(2^nv - 4) with x = 3 (nv = 20 by default, as the
               JAX package's bench.py sub_spartan(20)); the host verifier
               accepts the proof and rejects a tampered one; every kernel's
-              launch count in that run is > 0 (the sumchecks run B9-B11).
+              launch count in that run is > 0 (the sumchecks run B9-B11);
+              the proof's sha256 (of its repr) is printed, to compare
+              trees.
               Then two checks against the repository's own references:
               setup(10, 7) equals the tracked .srs_cache/srs_10_7.pkl, and
               the cubic circuit's proof on the card equals the one the plain
@@ -49,7 +55,8 @@ before its last line:
               count tables). Then a separate commit of val_a (it must take
               the by-value path) is timed, and a 2^dlog-entry 0/1 table
               committed through the by-value path must give the point of
-              the B8 window path called directly on it.
+              the B8 window path called directly on it. The proofs'
+              sha256 is printed.
   6. profile  slice 1's prove again, with the index rebuilt, under
               torch.profiler: each of the prover's named phases
               (models/spartan.py, utils/phases.py) with its host time and
@@ -57,8 +64,8 @@ before its last line:
               of the prove. The proof must equal the slice's. Then the same
               for slice 2's prove_rep3 by its co_spartan.<phase> ranges,
               and slice 2's DFS build_index (wall, device busy time, its
-              kernels by device time, B8's and B6's device time and
-              launches; the same commitments).
+              kernels by device time, B8's, B6's and B9's device time
+              and launches; the same commitments).
   7. slice4   the primitives off the prover path, at the JAX package's
               bench.py shapes (nv = 20): hash2 over 2^18 pairs (B12), a
               Merkle root over 2^20 leaves by merkle_layer, the Poseidon
@@ -110,11 +117,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# the card's state beside a timing: SM clock, its maximum, power draw and
+# temperature (a card at its power limit clocks down under load)
+CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -395,7 +407,7 @@ def kernel_phase(torch, dev, nv: int, regs: list) -> tuple:
     double_shapes(torch, C, p, records, dbl)
 
     bucket_kernel(torch, dev, gen, nv, regs, records, rand_points, madd)
-    sumcheck_kernels(torch, dev, gen, nv, records)
+    sumcheck_kernels(torch, dev, gen, nv, regs, records)
     return records, poseidon_ms(torch, dev, gen, nv)
 
 
@@ -498,7 +510,8 @@ def bucket_kernel(torch, dev, gen, nv: int, regs: list, records: list,
 
 
 # each kernel's device functions, spelled as entry_key spells the
-# profiler's names (B1-B3 and B9-B11 are templates on the field, Fr = 0)
+# profiler's names (B1-B3 and B9-B11 are templates on the field, Fr = 0;
+# B9 also on its comb id, 0 outer, 1 inner)
 ENTRIES = {"fp_mul": ("binary_kernel<0,0>",),
            "fp_add": ("binary_kernel<0,1>",),
            "fp_sub": ("binary_kernel<0,2>",),
@@ -507,10 +520,8 @@ ENTRIES = {"fp_mul": ("binary_kernel<0,0>",),
            "g1_double": ("double_kernel",),
            "g1_add_incomplete": ("add_incomplete_kernel",),
            "msm_bucket_accumulate": ("points_kernel", "merge_kernel"),
-           "sc_eval_round_outer":
-               ("eval_kernel<0,(anonymousnamespace)::OuterComb>",),
-           "sc_eval_round_inner":
-               ("eval_kernel<0,(anonymousnamespace)::InnerComb>",),
+           "sc_eval_round_outer": ("eval_kernel<0,0>",),
+           "sc_eval_round_inner": ("eval_kernel<0,1>",),
            "sc_reduce_partials": ("reduce_kernel<0>",),
            "sc_bind_round": ("bind_kernel<0>",),
            "poseidon_permute_t3": ("poseidon_t3_kernel",)}
@@ -557,7 +568,8 @@ def registers_of(regs: list, name: str) -> dict:
 # kernels built to at most 128 registers with no spill stores (four blocks
 # of 128 threads an SM)
 BUDGETED = ("g1_add", "g1_double", "g1_add_incomplete",
-            "msm_bucket_accumulate", "poseidon_permute_t3")
+            "msm_bucket_accumulate", "sc_eval_round_outer",
+            "sc_eval_round_inner", "poseidon_permute_t3")
 
 
 def check_register_budget(regs: list) -> None:
@@ -644,10 +656,27 @@ def double_shapes(torch, C, p, records, dbl) -> None:
     rec["shapes"] = shapes
 
 
-def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
+# B9's field products a pair: the outer comb two at each of t = 0, 1, 2
+# (the block's t = 3 follows from them once, after the block sum), the
+# inner one at each; the outer comb's earlier schedule took two at each of
+# its four points (B9_PRODUCTS_ALL_POINTS)
+B9_PRODUCTS = {"outer": 6, "inner": 3}
+B9_PRODUCTS_ALL_POINTS = 8
+# B9's grids timed at the first round's shape: blocks an SM (None: no cap,
+# one block a 128 pairs), in turns, B9_GRID_PASSES times each
+B9_GRID_CAPS = (2, 3, 4, 8, None)
+B9_GRID_PASSES = 3
+
+
+def sumcheck_kernels(torch, dev, gen, nv: int, regs: list,
+                     records: list) -> None:
     """B9-B11 at the first round's shapes of the slice's sumchecks: the
     outer comb on 3 tables of 2^nv entries + a 2^(nv-1) suffix, the inner
-    on 2 tables; B10 on 3 tables and on a [3, 2^nv, 8] share stack."""
+    on 2 tables, B9 also on each grid of B9_GRID_CAPS; B11 on the outer
+    comb's partials; B10 on 3 tables and on a [3, 2^nv, 8] share stack.
+    Then B9 over a whole sumcheck (b9_over_sumcheck). The grids are timed
+    in turns, each B9_GRID_PASSES times (the median kept), since the
+    card's clock moves between timings."""
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import sumcheck as SC
 
@@ -656,6 +685,7 @@ def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
     h = n // 2
     suffix = random_fe(torch, gen, h, dev)
     r = random_fe(torch, gen, 1, dev)[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def check(name, got, want):
         torch.cuda.synchronize()
@@ -668,28 +698,58 @@ def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
         tabs[:, 0] = 0                                  # a zero pair member
         tabs[:, 1] = F.constant(F.FR, F.FR.modulus - 1, dev)
         suf = suffix if comb.split_eq else None
+        entries = ENTRIES[comb.kernel.name]
         got = SC.eval_partials(F.FR, comb, tabs, suf)
         check(f"sc_eval_round {comb.name}", got,
               SC.eval_partials_plain(F.FR, comb, tabs, suf,
                                      blocks=got.shape[0]))
         ms = kernel_ms(torch, lambda: SC.eval_partials(F.FR, comb, tabs, suf),
-                       20, ENTRIES[comb.kernel.name])
+                       20, entries)
         ms_events = cuda_ms(torch, lambda: SC.eval_partials(
             F.FR, comb, tabs, suf), 20)
         pms = cuda_ms(torch, lambda: SC.eval_partials_plain(
             F.FR, comb, tabs, suf, blocks=got.shape[0]), 1)
-        d1 = comb.degree + 1
-        muls = d1 * (2 if comb.split_eq else 1)     # products per pair
+        grids = {}
+        for cap in B9_GRID_CAPS:
+            g = -(-h // SC.EVAL_THREADS)
+            grids[f"{cap}/SM" if cap else "uncapped"] = (
+                g if cap is None else min(g, cap * sms))
+            check(f"sc_eval_round {comb.name} on {g} blocks",
+                  SC._launch_eval(F.FR, comb, tabs, suf, g),
+                  SC.eval_partials_plain(F.FR, comb, tabs, suf, blocks=g))
+        runs = {k: [] for k in grids}
+        for _ in range(B9_GRID_PASSES):
+            for k, g in grids.items():
+                runs[k].append(kernel_ms(torch, lambda g=g: SC._launch_eval(
+                    F.FR, comb, tabs, suf, g), 20, entries))
+        by_grid = {k: {"blocks": grids[k], "ms": sorted(v)[len(v) // 2],
+                       "ms_runs": v} for k, v in runs.items()}
         nbytes = (comb.n_tables * n + (h if suf is not None else 0)) * ELEM
         nbytes += got.numel() * 4
+        muls = B9_PRODUCTS[comb.name]
         rec = record(comb.kernel, src, ms, pms, nbytes, muls * MUL_OPS * h)
-        rec["ms_events"] = ms_events
+        rec.update(registers_of(regs, comb.kernel.name), ms_events=ms_events,
+                   products_a_pair=muls, blocks=got.shape[0],
+                   ms_by_grid=by_grid)
+        if comb.split_eq:
+            rec["bound_all_points_ms"] = bound(
+                nbytes, B9_PRODUCTS_ALL_POINTS * MUL_OPS * h)[0]
         records.append(rec)
         log(f"[kernels] sc_eval_round {comb.name} ({comb.n_tables} x 2^{nv}"
             f"{' + 2^%d suffix' % (nv - 1) if suf is not None else ''}, "
             f"{got.shape[0]} partials) bit-exact; device {ms:.4f} ms (CUDA "
             f"events {ms_events:.4f} ms; plain {pms:.2f} ms), bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {muls} products "
+            f"a pair), {100 * rec['bound_ms'] / ms:.1f} % of it" +
+            (f"; at {B9_PRODUCTS_ALL_POINTS} products a pair "
+             f"{rec['bound_all_points_ms']:.4f} ms" if comb.split_eq else "") +
+            f"; {rec['registers']} registers, {rec['spill_stores']} bytes "
+            f"spill stores")
+        log(f"[kernels] sc_eval_round {comb.name} by grid, each bit-exact, "
+            f"median of {B9_GRID_PASSES} in turns: " +
+            ", ".join(f"{k} ({v['blocks']} blocks) {v['ms']:.4f} ms"
+                      for k, v in by_grid.items()) +
+            f"; {CLOCKS}: {nvidia_smi_line(CLOCKS)}")
         if comb is SC.OUTER:
             part = got
     red = SC.reduce_partials(F.FR, part)
@@ -726,6 +786,49 @@ def sumcheck_kernels(torch, dev, gen, nv: int, records: list) -> None:
         f"{k}: {v[0]:.4f} ms (CUDA events {v[1]:.4f} ms; plain {v[2]:.2f} ms)"
         for k, v in bind_ms.items())
         + f"; bound {records[-1]['bound_ms']:.4f} ms ({records[-1]['bound_by']})")
+    b9_over_sumcheck(torch, dev, gen, nv, records)
+
+
+def b9_over_sumcheck(torch, dev, gen, nv: int, records: list) -> None:
+    """Each B9 comb at every round of one nv-round sumcheck, h = 2^(nv-1)
+    pairs down to 1, as prove runs them: the tables (0 and m - 1 in the
+    first pair) bound by B10 between rounds at a random challenge, the
+    outer comb's split-eq suffix of each round from eq_suffix_tables of
+    random taus. Every round bit-exact against eval_partials_plain; the
+    device time of each round by kernel_ms, and their sum."""
+    from co_zkvms_tpu_torch.ops import field as F
+    from co_zkvms_tpu_torch.ops import sumcheck as SC
+
+    n = 1 << nv
+    sufs = SC.eq_suffix_tables(F.FR, random_fe(torch, gen, nv, dev))
+    for comb in (SC.OUTER, SC.INNER):
+        stack = torch.stack([random_fe(torch, gen, n, dev)
+                             for _ in range(comb.n_tables)])
+        stack[:, 0] = 0
+        stack[:, 1] = F.constant(F.FR, F.FR.modulus - 1, dev)
+        rounds = []
+        for j in range(nv):
+            suf = sufs[j] if comb.split_eq else None
+            got = SC.eval_partials(F.FR, comb, stack, suf)
+            want = SC.eval_partials_plain(F.FR, comb, stack, suf,
+                                          blocks=got.shape[0])
+            torch.cuda.synchronize()
+            if not same(torch, got, want):
+                raise AssertionError(f"sc_eval_round {comb.name} round {j} "
+                                     f"({stack.shape[1] // 2} pairs): "
+                                     "kernel != plain")
+            rounds.append(kernel_ms(
+                torch, lambda: SC.eval_partials(F.FR, comb, stack, suf), 20,
+                ENTRIES[comb.kernel.name]))
+            stack = SC.bind_rows(F.FR, stack,
+                                 random_fe(torch, gen, 1, dev)[0])
+        rec = next(r for r in records if r["name"] == comb.kernel.name)
+        rec.update(sumcheck_ms=sum(rounds), sumcheck_rounds_ms=rounds)
+        log(f"[kernels] sc_eval_round {comb.name} over a {nv}-round "
+            f"sumcheck (2^{nv - 1} .. 1 pairs), every round bit-exact: "
+            f"{sum(rounds):.4f} ms device time in {nv} launches; by round: "
+            + ", ".join(f"{ms:.4f}" for ms in rounds) +
+            f"; {CLOCKS}: {nvidia_smi_line(CLOCKS)}")
 
 
 # kernels off the provers' path: slice 4 drives and checks them
@@ -809,6 +912,7 @@ def slice_phase(torch, dev, args, records) -> tuple:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+    log(f"[slice] proof sha256 {proof_digest(proof)}")
     log(f"[slice] squaring_chain(2^{nv} - 4) nv={nv}: circuit+witness "
         f"{t_circuit:.2f} s (host), setup {t_setup:.2f} s, index "
         f"{t_index:.2f} s, prove {t_prove:.2f} s, verify {t_verify:.2f} s "
@@ -845,6 +949,17 @@ def slice_phase(torch, dev, args, records) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 5: slice 2, co-Spartan with zk and the DFS round
 # ---------------------------------------------------------------------------
+
+
+def proof_digest(proof) -> str:
+    """sha256 of a proof's repr (NamedTuples of ints): equal digests, equal
+    proofs, across trees and runs."""
+    import hashlib
+
+    text = repr(proof)
+    if "tensor" in text:
+        raise AssertionError("a proof holds a tensor: its repr is no digest")
+    return hashlib.sha256(text.encode()).hexdigest()
 
 
 def first_difference(a, b):
@@ -943,7 +1058,8 @@ def slice2_phase(torch, dev, args, r1cs, z, index, records) -> tuple:
     log(f"[slice2] zk params (host) {t_params:.2f} s")
     log(f"[slice2] prove (single party, zk + dfs) {t_single:.2f} s")
     log(f"[slice2] prove_rep3 (zk + dfs) {t_rep3:.2f} s")
-    log(f"[slice2] prove_rep3 == single-party proof, field by field")
+    log(f"[slice2] prove_rep3 == single-party proof, field by field; "
+        f"proof sha256 {proof_digest(rep3)}")
     log(f"[slice2] verify {t_verify:.2f} s (host) -> True; va + 1 -> False; "
         f"DFS val_a + 1 -> False")
     log(f"[slice2] peak device memory {peak / 2**30:.2f} GiB")
@@ -1310,7 +1426,8 @@ G1_AND_B8 = ("g1_add_mixed", "g1_add", "g1_double", "g1_add_incomplete",
 
 def report_device_work(events, tag: str) -> None:
     """The eight kernel names with the most device time in ``events``, the
-    port's G1 and B8 kernels below them, and B8's total (all its passes)."""
+    port's G1 and B8 kernels below them, B8's total (all its passes), B6's,
+    and B9's for each comb."""
     from co_zkvms_tpu_torch.utils import phases
 
     per_kernel = {}
@@ -1327,7 +1444,10 @@ def report_device_work(events, tag: str) -> None:
         if any(is_entry(key, ENTRIES[k]) for k in G1_AND_B8):
             log(f"[{tag}]   {us / 1e3:10.2f} ms {cnt:7d} x  {key[:80]}")
     for label, name in (("B8 msm_bucket_accumulate, all passes",
-                         "msm_bucket_accumulate"), ("B6 g1_double", "g1_double")):
+                         "msm_bucket_accumulate"),
+                        ("B6 g1_double", "g1_double"),
+                        ("B9 sc_eval_round_outer", "sc_eval_round_outer"),
+                        ("B9 sc_eval_round_inner", "sc_eval_round_inner")):
         got = [v for key, v in per_kernel.items()
                if is_entry(key, ENTRIES[name])]
         log(f"[{tag}]   {label}: {sum(us for us, _ in got) / 1e3:.2f} ms "

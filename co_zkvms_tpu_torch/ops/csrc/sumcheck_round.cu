@@ -17,14 +17,16 @@
 // Bound on the H100: bind reads two elements and writes one per output with
 // one Montgomery product, so it is bound by bytes (about 96 B against 264
 // IMAD slots; see field_kernels.cu). The round message reads 2 x tables (+1
-// suffix) elements per pair and runs the comb (degree + 1) times: the outer
-// comb 8 products (a * b and the suffix product at each of 4 t) per 224
-// bytes, the inner 3 per 128 bytes, so both are bound by operations.
-// Design: one thread per pair with every restriction in registers, the
-// t-restrictions built by modular adds of the slope, one partial per block.
+// suffix) elements per pair: the outer comb does 6 carry-chain products
+// per 224 bytes (t = 0, 1, 2; the block's t = 3 by finite differences, see
+// sumcheck_round.cuh), the inner 3 per 128 bytes, so both are bound by
+// operations. Design: one thread per pair at a time with every value in
+// registers, at most 128 registers a thread so that four blocks of 128
+// threads share an SM; the wrapper sizes the grid to one such wave
+// (ops/sumcheck.py EVAL_BLOCKS_PER_SM), and a thread loops over its pairs.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "sumcheck_round.cuh"
 
 using namespace bn254;
 
@@ -32,37 +34,11 @@ namespace {
 
 // B9's block size is a launch argument (the wrapper's EVAL_THREADS, the one
 // source of the partition its plain version rebuilds): a multiple of 32 up
-// to kEvalMaxThreads.
-constexpr int kEvalMaxThreads = 256;
+// to kEvalMaxThreads, with kEvalMinBlocks blocks resident on an SM.
+constexpr int kEvalMaxThreads = 128;
+constexpr int kEvalMinBlocks = 4;
 constexpr int kReduceThreads = 256;
 constexpr int kBindThreads = 256;
-
-// Spartan's outer comb with the split-eq suffix: suffix * (a * b - c).
-struct OuterComb {
-  static constexpr int kTables = 3;
-  static constexpr int kDegree = 3;
-  static constexpr bool kSuffix = true;
-  template <int F>
-  FDEV static void eval(uint32_t r[8], const uint32_t suf[8],
-                        uint32_t v[kTables][8]) {
-    uint32_t ab[8];
-    mont_mul<F>(ab, v[0], v[1]);
-    mod_sub<F>(ab, ab, v[2]);
-    mont_mul<F>(r, suf, ab);
-  }
-};
-
-// Spartan's inner comb: a * b.
-struct InnerComb {
-  static constexpr int kTables = 2;
-  static constexpr int kDegree = 2;
-  static constexpr bool kSuffix = false;
-  template <int F>
-  FDEV static void eval(uint32_t r[8], const uint32_t*,
-                        uint32_t v[kTables][8]) {
-    mont_mul<F>(r, v[0], v[1]);
-  }
-};
 
 template <int F>
 __device__ __forceinline__ void warp_sum(uint32_t a[8]) {
@@ -99,49 +75,30 @@ __device__ __forceinline__ void block_sum(uint32_t a[8], uint32_t* sm) {
   __syncthreads();
 }
 
-// B9: per-block partial sums of comb(restrictions at t), t = 0..degree.
-// tabs: kTables tables of 2h elements, ``tstride`` elements apart; suffix:
-// h elements (split-eq) or unused. Block b takes the pairs p = b * T + i +
-// k * (gridDim * T), T = blockDim; its partial lands at partials[b, t].
-template <int F, class Comb>
-__global__ void __launch_bounds__(kEvalMaxThreads)
+// B9: per-block partial sums of comb(restrictions at t), t = 0..degree, for
+// comb id C (kOuterComb, kInnerComb). tabs: the comb's tables of 2h
+// elements, ``tstride`` elements apart; suffix: h elements (split-eq) or
+// unused. Block b takes the pairs p = b * T + i + k * (gridDim * T),
+// T = blockDim; its partial lands at partials[b, t].
+template <int F, int C>
+__global__ void __launch_bounds__(kEvalMaxThreads, kEvalMinBlocks)
 eval_kernel(const uint32_t* __restrict__ tabs, long long tstride,
             const uint32_t* __restrict__ suffix, long long h,
             uint32_t* __restrict__ partials) {
+  typedef typename CombOf<C>::type Comb;
   constexpr int D1 = Comb::kDegree + 1;
   __shared__ uint32_t sm[8 * (kEvalMaxThreads / 32)];
   uint32_t acc[D1][8];
+  sc_thread_pairs<F, Comb>(acc, tabs, tstride, suffix, h,
+                           (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                           (long long)gridDim.x * blockDim.x);
 #pragma unroll
-  for (int t = 0; t < D1; t++) fe_zero(acc[t]);
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < h; p += step) {
-    uint32_t cur[Comb::kTables][8], slope[Comb::kTables][8], suf[8];
+  for (int t = 0; t < Comb::kPoints; t++) block_sum<F>(acc[t], sm);
+  if (threadIdx.x == 0) {
+    Comb::template finish<F>(acc);
 #pragma unroll
-    for (int k = 0; k < Comb::kTables; k++) {
-      const uint32_t* pair = tabs + 8 * (k * tstride + 2 * p);
-      uint32_t odd[8];
-      fe_load(cur[k], pair);
-      fe_load(odd, pair + 8);
-      mod_sub<F>(slope[k], odd, cur[k]);
-    }
-    if (Comb::kSuffix) fe_load(suf, suffix + 8 * p);
-#pragma unroll
-    for (int t = 0; t < D1; t++) {
-      if (t > 0) {
-#pragma unroll
-        for (int k = 0; k < Comb::kTables; k++)
-          mod_add<F>(cur[k], cur[k], slope[k]);
-      }
-      uint32_t v[8];
-      Comb::template eval<F>(v, suf, cur);
-      mod_add<F>(acc[t], acc[t], v);
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < D1; t++) {
-    block_sum<F>(acc[t], sm);
-    if (threadIdx.x == 0) fe_store(partials + 8 * ((long long)blockIdx.x * D1 + t), acc[t]);
+    for (int t = 0; t < D1; t++)
+      fe_store(partials + 8 * ((long long)blockIdx.x * D1 + t), acc[t]);
   }
 }
 
@@ -186,7 +143,7 @@ bind_kernel(const uint32_t* __restrict__ in, long long istride,
   fe_store(out + 8 * i, o);
 }
 
-template <class Comb>
+template <int C>
 int launch_eval(const void* tabs, long long tstride, const void* suffix,
                 long long h, void* partials, int blocks, int threads,
                 int fid, void* stream) {
@@ -197,9 +154,9 @@ int launch_eval(const void* tabs, long long tstride, const void* suffix,
   const uint32_t* ps = static_cast<const uint32_t*>(suffix);
   uint32_t* po = static_cast<uint32_t*>(partials);
   if (fid == 0) {
-    eval_kernel<0, Comb><<<blocks, threads, 0, s>>>(pt, tstride, ps, h, po);
+    eval_kernel<0, C><<<blocks, threads, 0, s>>>(pt, tstride, ps, h, po);
   } else {
-    eval_kernel<1, Comb><<<blocks, threads, 0, s>>>(pt, tstride, ps, h, po);
+    eval_kernel<1, C><<<blocks, threads, 0, s>>>(pt, tstride, ps, h, po);
   }
   return (int)cudaGetLastError();
 }
@@ -213,12 +170,12 @@ extern "C" {
 int sc_eval_round(const void* tabs, long long tstride, const void* suffix,
                   long long h, void* partials, int blocks, int threads,
                   int comb, int fid, void* stream) {
-  if (comb == 0)
-    return launch_eval<OuterComb>(tabs, tstride, suffix, h, partials, blocks,
-                                  threads, fid, stream);
-  if (comb == 1)
-    return launch_eval<InnerComb>(tabs, tstride, suffix, h, partials, blocks,
-                                  threads, fid, stream);
+  if (comb == kOuterComb)
+    return launch_eval<kOuterComb>(tabs, tstride, suffix, h, partials,
+                                   blocks, threads, fid, stream);
+  if (comb == kInnerComb)
+    return launch_eval<kInnerComb>(tabs, tstride, suffix, h, partials,
+                                   blocks, threads, fid, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -131,8 +131,12 @@ OUTER = RoundComb("outer", 0, 3, 3, True, _outer_plain,  # suffix (a b - c)
 INNER = RoundComb("inner", 1, 2, 2, False, _inner_plain,  # a b
                   SC_EVAL_INNER)
 
-EVAL_THREADS = 128      # B9's block size, passed to the kernel at launch
-EVAL_BLOCKS_PER_SM = 8  # grid cap per SM: beyond it a thread loops over pairs
+# B9's grid: blocks of EVAL_THREADS threads (passed to the kernel at launch),
+# capped at EVAL_BLOCKS_PER_SM an SM, the blocks that its launch bounds keep
+# resident (128 registers a thread): one wave, in which a thread loops over
+# its pairs. The kernel's kEvalMaxThreads / kEvalMinBlocks match them.
+EVAL_THREADS = 128
+EVAL_BLOCKS_PER_SM = 4
 
 
 def eval_blocks(h: int, device) -> int:
@@ -202,13 +206,18 @@ def eval_partials(spec: FieldSpec, comb: RoundComb, stack, suffix=None):
         return eval_partials_plain(spec, comb, stack, suffix)
     for t in ts:
         F._check(t, stack.device)
-    g = eval_blocks(h, stack.device)
-    out = torch.empty((g, comb.degree + 1, F.NLIMBS), dtype=torch.int32,
+    return _launch_eval(spec, comb, stack, suffix, eval_blocks(h, stack.device))
+
+
+def _launch_eval(spec, comb, stack, suffix, blocks):
+    """One B9 launch on a grid of ``blocks`` blocks (eval_partials checks
+    its arguments and takes ``eval_blocks``)."""
+    out = torch.empty((blocks, comb.degree + 1, F.NLIMBS), dtype=torch.int32,
                       device=stack.device)
     comb.kernel(stack.data_ptr(), stack.shape[1],
-                0 if suffix is None else suffix.data_ptr(), h, out.data_ptr(),
-                g, EVAL_THREADS, comb.cid, spec.fid,
-                build.stream_ptr(stack.device))
+                0 if suffix is None else suffix.data_ptr(),
+                stack.shape[1] // 2, out.data_ptr(), blocks, EVAL_THREADS,
+                comb.cid, spec.fid, build.stream_ptr(stack.device))
     return out
 
 

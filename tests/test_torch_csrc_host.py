@@ -1,16 +1,18 @@
 """The CUDA kernels' own arithmetic, compiled as host C++.
 
-ops/csrc/field.cuh, g1.cuh, msm_bucket.cuh and poseidon.cuh compile with a
-host compiler too (FDEV -> inline). This test builds a small harness over
-them with g++ and holds the kernels' Montgomery products (the C CIOS form,
-and the carry-chain form of B5, B7 and B8 with each PTX step emulated on C
-integers), modular add/sub, G1 formulas and B8's chunk walks under both
-arithmetic policies to the port's plain PyTorch versions bit for bit, edge
-rows included, B6's loop of doublings to repeated plain doublings, and
-B12's t = 3 Poseidon permutation in its sparse schedule, with its
-constants as the card's constant bank holds them, to the host mirror
-``host_permute`` and to ``permute_plain``. No nvcc is needed; without g++
-the test skips.
+ops/csrc/field.cuh, g1.cuh, msm_bucket.cuh, poseidon.cuh and
+sumcheck_round.cuh compile with a host compiler too (FDEV -> inline). This
+test builds a small harness over them with g++ and holds the kernels'
+Montgomery products (the C CIOS form, and the carry-chain form of B5, B7
+and B8 with each PTX step emulated on C integers), modular add/sub, G1
+formulas and B8's chunk walks under both arithmetic policies to the port's
+plain PyTorch versions bit for bit, edge rows included, B6's loop of
+doublings to repeated plain doublings, B12's t = 3 Poseidon permutation in
+its sparse schedule, with its constants as the card's constant bank holds
+them, to the host mirror ``host_permute`` and to ``permute_plain``, and
+B9's per-pair points and per-block partials (t = 3 of the outer comb by
+finite differences) to the plain comb and ``eval_partials_plain``. No nvcc
+is needed; without g++ the test skips.
 """
 
 import ctypes
@@ -23,18 +25,19 @@ import pytest
 from co_zkvms_tpu.ops import ref_bn254 as bn
 
 
-torch = C = F = P = build = None  # bound by _port()
+torch = C = F = P = SC = build = None  # bound by _port()
 
 
 def _port():
     """Import torch and the port when the first test of this module runs,
     not at collection: an xdist worker that runs none of these tests
     never loads them."""
-    global torch, C, F, P, build
+    global torch, C, F, P, SC, build
     import torch
     from co_zkvms_tpu_torch.ops import curve as C
     from co_zkvms_tpu_torch.ops import field as F
     from co_zkvms_tpu_torch.ops import poseidon as P
+    from co_zkvms_tpu_torch.ops import sumcheck as SC
     from co_zkvms_tpu_torch.utils import build
 
 
@@ -49,6 +52,7 @@ HARNESS = r"""
 #include "g1.cuh"
 #include "msm_bucket.cuh"
 #include "poseidon.cuh"
+#include "sumcheck_round.cuh"
 using namespace bn254;
 typedef uint32_t u32;
 extern "C" {
@@ -224,6 +228,55 @@ void h_double_times(int times, u32* const* p, int n) {
     st(p, i, a);
   }
 }
+}
+// B9's schedule (sumcheck_round.cuh). what 0: each pair's points
+// [h][kPoints][8] from Comb::pair alone; what 1: the partials [blocks][D1][8]
+// of a grid of blocks x threads, each thread's sc_thread_pairs summed over
+// its block (as block_sum does), then the block's finishing step
+template <int F, class Comb>
+static void sc_rows(int what, const u32* tabs, long long tstride,
+                    const u32* suffix, long long h, int blocks, int threads,
+                    u32* out) {
+  constexpr int K = Comb::kPoints;
+  constexpr int D1 = Comb::kDegree + 1;
+  if (what == 0) {
+    for (long long p = 0; p < h; p++) {
+      u32 acc[K][8];
+      for (int t = 0; t < K; t++) fe_zero(acc[t]);
+      Comb::template pair<F>(acc, tabs, tstride, suffix, p);
+      for (int t = 0; t < K; t++) fe_copy(out + 8 * (p * K + t), acc[t]);
+    }
+    return;
+  }
+  for (int b = 0; b < blocks; b++) {
+    u32 sum[D1][8];
+    for (int t = 0; t < D1; t++) fe_zero(sum[t]);
+    for (int i = 0; i < threads; i++) {
+      u32 acc[D1][8];
+      sc_thread_pairs<F, Comb>(acc, tabs, tstride, suffix, h,
+                               (long long)b * threads + i,
+                               (long long)blocks * threads);
+      for (int t = 0; t < K; t++) mod_add<F>(sum[t], sum[t], acc[t]);
+    }
+    Comb::template finish<F>(sum);
+    for (int t = 0; t < D1; t++)
+      fe_copy(out + 8 * ((long long)b * D1 + t), sum[t]);
+  }
+}
+extern "C" void h_sc_eval(int comb, int f, int what, const u32* tabs,
+                          long long tstride, const u32* suffix, long long h,
+                          int blocks, int threads, u32* out) {
+  if (comb == kOuterComb) {
+    if (f == 0) sc_rows<0, OuterComb>(what, tabs, tstride, suffix, h, blocks,
+                                      threads, out);
+    else sc_rows<1, OuterComb>(what, tabs, tstride, suffix, h, blocks,
+                               threads, out);
+  } else {
+    if (f == 0) sc_rows<0, InnerComb>(what, tabs, tstride, suffix, h, blocks,
+                                      threads, out);
+    else sc_rows<1, InnerComb>(what, tabs, tstride, suffix, h, blocks,
+                               threads, out);
+  }
 }
 """
 
@@ -401,3 +454,67 @@ def test_bucket_schedule_matches_plain(lib, bucket_inputs, arith):
                      _ptrs(carry + carry[:1]))
         assert all(torch.equal(o.reshape(nw, nb, 8), w)
                    for o, w in zip(out, want)), (kind, run)
+
+
+def _round_inputs(spec, comb, h):
+    """comb's tables [n_tables, 2h, 8] and, for the outer comb, a suffix
+    [h, 8], seeded; 0, 1 and m - 1 lead every row (_fe), so pair 0 is
+    (0, 1) and pair 1 starts at m - 1 in every table."""
+    rng = np.random.default_rng(55 + comb.cid)
+    stack = torch.stack([_fe(rng, spec, 2 * h) for _ in range(comb.n_tables)])
+    suffix = _fe(rng, spec, h) if comb.split_eq else None
+    return stack.contiguous(), suffix
+
+
+def _sc_eval(lib, spec, comb, stack, suffix, what, blocks, threads, rows):
+    h = stack.shape[1] // 2
+    out = torch.empty((rows, 8), dtype=torch.int32)
+    lib.h_sc_eval(comb.cid, spec.fid, what, _ptr(stack),
+                  ctypes.c_longlong(stack.shape[1]),
+                  _ptr(stack) if suffix is None else _ptr(suffix),
+                  ctypes.c_longlong(h), blocks, threads, _ptr(out))
+    return out
+
+
+@pytest.mark.parametrize("spec", ["FR", "FQ"], ids=["fr", "fq"])
+@pytest.mark.parametrize("comb", ["outer", "inner"])
+def test_round_pair_points_match_plain_comb(lib, comb, spec):
+    """B9's per-pair schedule (sumcheck_round.cuh Comb::pair, carry-chain
+    products emulated): the points t = 0, 1, 2 a pair accumulates equal the
+    plain comb (_outer_plain / _inner_plain) on the restrictions at t, bit
+    for bit; 6 products a pair for the outer comb, 3 for the inner."""
+    spec = getattr(F, spec)
+    comb = SC.OUTER if comb == "outer" else SC.INNER
+    h = 40
+    stack, suffix = _round_inputs(spec, comb, h)
+    got = _sc_eval(lib, spec, comb, stack, suffix, 0, 0, 0, 3 * h)
+    even, odd = stack[:, 0::2], stack[:, 1::2]
+    slope = F.sub_plain(spec, odd, even)
+    cur, want = even, []
+    for t in range(3):
+        if t:
+            cur = F.add_plain(spec, cur, slope)
+        want.append(comb.plain(spec, suffix, list(cur)))
+    assert torch.equal(got.reshape(h, 3, 8), torch.stack(want, dim=1))
+
+
+@pytest.mark.parametrize("spec", ["FR", "FQ"], ids=["fr", "fq"])
+@pytest.mark.parametrize("comb", ["outer", "inner"])
+def test_round_partials_match_eval_partials_plain(lib, comb, spec):
+    """B9's block schedule on the host: each simulated thread's pairs
+    (sc_thread_pairs), summed over its block, then the block's finishing
+    step (the outer comb's t = 3 = S(0) - 3 S(1) + 3 S(2)), against
+    eval_partials_plain, which sums all degree + 1 points pair by pair, bit
+    for bit; grids with several pairs a thread, idle threads, one block."""
+    spec = getattr(F, spec)
+    comb = SC.OUTER if comb == "outer" else SC.INNER
+    h = 50
+    stack, suffix = _round_inputs(spec, comb, h)
+    d1 = comb.degree + 1
+    for blocks, threads in ((3, 4), (2, 32), (1, SC.EVAL_THREADS)):
+        got = _sc_eval(lib, spec, comb, stack, suffix, 1, blocks, threads,
+                       blocks * d1)
+        want = SC.eval_partials_plain(spec, comb, stack, suffix,
+                                      blocks=blocks, threads=threads)
+        assert torch.equal(got.reshape(blocks, d1, 8), want), (blocks,
+                                                               threads)

@@ -112,6 +112,33 @@ def _check_every_round(comb, name, nv, grid):
             tables
 
 
+@pytest.mark.parametrize("grid", GRIDS, ids=["default", "one_block",
+                                              "grid_stride"])
+def test_outer_partials_are_quadratic_in_t(grid):
+    """The premise of the outer comb's schedule on the card: the split-eq
+    suffix does not depend on t, so every block's partial is quadratic in t
+    and S(3) = S(0) - 3 S(1) + 3 S(2) (mod r). Checked on
+    eval_partials_plain, which evaluates all four points, in every block of
+    every round from n = 2^4, 2^5 and 2^6 entries (tables bound between
+    rounds)."""
+    comb = SC.OUTER
+    for nv in (4, 5, 6):
+        rng = np.random.default_rng(100 + nv)
+        stack = torch.stack([_fe(_ints(rng, 1 << nv))
+                             for _ in range(comb.n_tables)])
+        while stack.shape[1] > 1:
+            h = stack.shape[1] // 2
+            suf = _fe(_ints(rng, h))
+            blocks, threads = grid or (None, SC.EVAL_THREADS)
+            part = SC.eval_partials_plain(F.FR, comb, stack, suf,
+                                          blocks=blocks, threads=threads)
+            s = F.to_int(F.FR, part)
+            for row in s:
+                s0, s1, s2, s3 = (int(v) for v in row)
+                assert s3 == (s0 - 3 * s1 + 3 * s2) % MOD, (nv, h, grid)
+            stack = SC.bind_rows(F.FR, stack, _fe(_ints(rng, 1)))
+
+
 def test_bind_rows_every_round():
     """B10 on three public tables and on a Rep3 stack of three share
     stacks (rows = tables x parties): canonical values, every round, from
